@@ -11,13 +11,22 @@ Phases, each printing its wall time:
 0. the card, its power limit, the torch and nvcc versions;
 1. the kernels' build (``nvcc`` into ``pmpx_torch/_build/``), with the
    registers, shared memory and spills ``ptxas`` reports;
-2. ``linreg_rss`` against its plain version at three shapes;
+2. ``linreg_rss`` against its plain version at the shapes the sweep
+   paths give it;
 3. ``fused_chain`` (injected uniforms) against its plain version, step by
-   step from the kernel's own state;
+   step from the kernel's own state; 3b. the same for its flat-MP and
+   general modes; 3c. the same for every fused cell of the time grid, on
+   the grid's own data;
 4. the sweep main path of the benchmark cell (``pmpx_torch.bench``), with
    its launch count and a posterior check;
 5. the fused main path, likewise;
-6. each kernel's time beside its plain version's and its bound.
+6. each kernel's time beside its plain version's and its bound (the
+   launches of each from the time grid of phase 7);
+7. the time grid of the reference (``pmpx_torch.experiments.
+   time_analysis``) at full width on both paths, with a posterior check of
+   a flat-MP and a general fused chain;
+8. ``cores_sweep`` on the fused path for PMP and MP, its wall budget cut
+   to ``CORES_SET_TIME`` seconds per P (the one reduction).
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -29,8 +38,10 @@ or of the ``pmpx`` package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +57,23 @@ CHAIN_AGREE = 0.99
 
 SWEEP_BURN = 500  # of bench.SWEEP_ITERS = 2000 supersteps
 FUSED_BURN = 10_000  # of bench.FUSED_ITERS = 100,000
+
+# phase 3b: (N, depth) of the flat-MP and general modes; the grid's flat
+# P = 4 and P = 1024, P = 200 (lanes above P), conv_pmp's N = 7 x depth 3
+# (P = 512) and the largest base the general kernel takes at P = 1024
+NEW_MODES = ((3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2))
+# phase 2: (P, n) of linreg_rss: the bench cell's P = 1024 and the time
+# grid's P = 4 (padded to 8) and P = 1024 at n = 500 and 100,000; P = 200
+# and P = 8 at other sizes
+RSS_SHAPES = ((1024, 100_000), (1024, 500), (4, 100_000), (4, 500),
+              (200, 100_000), (8, 5000))
+# phase 3c: (N, depth) of the time grid's fused cells: PMP P = 4 (depth 2,
+# lanes above P) and P = 1024, MP P = 4 and P = 1024, conv_pmp's N = 7 x 3
+GRID_FUSED = ((1, 2), (1, 10), (3, 1), (1023, 1), (7, 3))
+POSTERIOR_STEPS = 50_000  # phase 7's flat-MP and general posterior chains
+POSTERIOR_BURN = 10_000
+# phase 8: the wall budget per P (pmpx's default is 5 s, the paper's 180)
+CORES_SET_TIME = 2.0
 
 
 class Phase:
@@ -108,6 +136,82 @@ def chain_ops(P: int, depth: int, steps: int, n_slots: int) -> float:
     return P * steps * per_node + 8 * n_slots
 
 
+def chain_mp_ops(P: int, steps: int, n_slots: int) -> float:
+    """f32 operations of one fused_chain_mp launch, counted from the
+    kernel (a transcendental counts as one): per node and superstep,
+    Box-Muller 3 x 7, position 3, log-density 15, the MTM weight 26
+    (|S|^2 5, its share of the 4 block sums 4, S.G 5, the distance 4, the
+    weight 2, max 1, exp-sum 2, log-softmax 3), weights, scan and count 4;
+    per launch, 8 per data slot for the statistics."""
+    per_node = 21 + 3 + 15 + 26 + 4
+    return P * steps * per_node + 8 * n_slots
+
+
+def chain_general_ops(N: int, depth: int, steps: int, n_slots: int) -> float:
+    """f32 operations of one fused_chain_general launch, counted from the
+    kernel: per node and superstep, Box-Muller 3 x 7, positions 3 per
+    nonzero digit (depth (1 - 1/base) on average) and 3 for theta,
+    log-density 15, |S|^2 5, weights, scan and count 4; per level i, each
+    of the m_i = base^(i+1) nodes of the level adds 9 per sibling for the
+    group sums and 14 for its weight, max and exp (base 6 + 3 more per
+    sibling than a count of the sums alone: the squares are recomputed), and
+    every node adds base + 5 for its group total and level factor; per
+    launch, 8 per data slot."""
+    base = N + 1
+    P = base**depth
+    per_node = 21 + 3 * depth * (1 - 1 / base) + 3 + 15 + 5 + 4
+    levels = sum(base ** (i + 1) * (9 * base + 14) for i in range(depth))
+    levels += P * depth * (base + 5)
+    return steps * (P * per_node + levels) + 8 * n_slots
+
+
+def lstm_fused_bound(P: int = 8, B: int = 60_000, T: int = 28, F: int = 28,
+                     H: int = 64) -> dict:
+    """The bound of pmpx/kernels/lstm_fused.py (not ported yet) at the
+    MNIST-LSTM protocol's shapes: P = 8 parameter sets (N = 7, a binary
+    tree of 8 states), the full batch B = 60,000, T = F = 28, H = 64
+    (lstm_final_hidden, lstm_fused.py:83-115).  8 H (F + H) T flops per
+    parameter set and example (the two gate matmuls); bytes: x (T, B, F)
+    read once, the P weight sets read once, (P, B, H) written, all f32.
+    Against f32 on the CUDA cores and against bf16 inputs on the tensor
+    cores (989 TFLOP/s)."""
+    flops = 8.0 * H * (F + H) * T * P * B
+    nbytes = 4.0 * (T * B * F + P * (F * 4 * H + H * 4 * H + 4 * H)
+                    + P * B * H)
+    b_ms, b_by = bound(flops, nbytes)
+    return {"name": "lstm_fused", "replaces": "pmpx/kernels/lstm_fused.py:48",
+            "P": P, "B": B, "flops": flops, "bytes": nbytes,
+            "bound_ms_f32": b_ms, "bound_by_f32": b_by,
+            "bound_ms_bf16_tensor": max(flops / 989e12,
+                                        nbytes / 2 / PEAK_BYTES_PER_S) * 1e3}
+
+
+def chain_vs_plain(fc, label, target, theta0, consts, seed, steps=100,
+                   chunks=2) -> float:
+    """``chunks`` launches of ``steps`` supersteps of fc.chain_chunk on
+    injected uniforms, each superstep held against the plain version's
+    from the kernel's own previous state (fc.replay_against_plain).
+    Requires CHAIN_AGREE of the selections equal and the states within
+    CHAIN_ATOL where they are; returns that max |err|."""
+    dev = theta0.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    uin = 1.0 - torch.rand(
+        (chunks, steps * fc.U_ROWS, fc.lane_extent(consts["P"])),
+        generator=gen, device=dev)
+    _, _, agree, err, misses = fc.replay_against_plain(
+        target.x2d, target.y2d, theta0, uin, **consts)
+    for t, k, kk, u, lo, hi in misses:
+        print(f"step {t}: plain picks {k}, kernel {kk}; u = {u:.9g}, "
+              f"plain cdf[k-1], cdf[k] = {lo:.9g}, {hi:.9g}")
+    n_steps = steps * chunks
+    print(f"{label} (P={consts['P']}): {agree}/{n_steps} selections agree; "
+          f"max|err| of the state where they do: {err:.3g}")
+    require(agree >= CHAIN_AGREE * n_steps, f"{label} selections")
+    require(err <= CHAIN_ATOL, f"{label} trace atol")
+    return err
+
+
 def posterior_check(name, trace, burn, target, bench) -> None:
     ls, sd = bench.least_squares(target)
     mean = trace[burn:, :2].double().mean(0).cpu()
@@ -131,11 +235,14 @@ def main() -> int:
         raise RuntimeError(f"pmpx_torch was imported from "
                            f"{pmpx_torch.__file__}, not from {here}")
     from pmpx_torch import _build, bench
+    from pmpx_torch.config import SamplerSpec
+    from pmpx_torch.experiments import time_analysis
     from pmpx_torch.kernels import fused_chain as fc
     from pmpx_torch.kernels import launches, reset_launches
     from pmpx_torch.kernels.linreg import (
         batched_rss, batched_rss_ref, pad_proposals,
     )
+    from pmpx_torch.samplers import pmp
     from pmpx_torch.targets.linreg import make_synthetic_linreg, pad_to_grid
 
     t_start = time.perf_counter()
@@ -162,7 +269,7 @@ def main() -> int:
 
     with Phase("2 linreg_rss vs plain"):
         rss_err = 0.0
-        for P, n in ((1024, 100_000), (200, 100_000), (8, 5000)):
+        for P, n in RSS_SHAPES:
             gen = torch.Generator(device=dev)
             gen.manual_seed(100 + P)
             x, y = make_synthetic_linreg(gen, n)
@@ -179,8 +286,7 @@ def main() -> int:
                   f"({x2d.numel()} slots): max|err| {err:.6g}, "
                   f"max|rss| {scale:.6g}, rel {err / scale:.3g}")
             require(err <= RSS_TOL * scale, f"linreg_rss P={P} n={n}")
-            if P == 1024:
-                rss_err = err
+            rss_err = max(rss_err, err)
 
     target = bench.bench_target(dev)
     cfg = bench.bench_config()
@@ -189,45 +295,35 @@ def main() -> int:
     consts = dict(P=P, depth=depth, n_data=float(target.n),
                   temper=target.temper, step_size=cfg.step_size)
 
+    # max |err| of the state, per mode, over phases 3, 3b and 3c
+    mode_err = {"binary": 0.0, "mp": 0.0, "general": 0.0}
+
     with Phase("3 fused_chain vs plain"):
-        steps, chunks = 100, 2
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(3)
-        uin = 1.0 - torch.rand((chunks, steps * fc.U_ROWS, L),
-                               generator=gen, device=dev)
-        th = bench.theta0(dev)
-        parts = []
-        for c in range(chunks):
-            tr, th = fc.chain_chunk(target.x2d, target.y2d, th, steps=steps,
-                                    uin=uin[c], **consts)
-            parts.append(tr)
-        ktrace = torch.cat(parts, dim=1).cpu()  # (4, steps*chunks)
-        stats = fc.suff_stats(target.x2d, target.y2d)
-        prev = bench.theta0(dev)
-        agree, chain_err = 0, 0.0
-        for t in range(steps * chunks):
-            c, tt = divmod(t, steps)
-            u, b = uin[c], tt * fc.U_ROWS
-            Y, _, _, cdf, usel, k = fc.ref_step(
-                stats, prev, u[b:b + 3, :P], u[b + 8:b + 11, :P],
-                u[b + 16, 0], depth=depth, n_data=consts["n_data"],
-                temper=consts["temper"], step_size=consts["step_size"])
-            k, kk = int(k), int(ktrace[3, t])
-            if k == kk:
-                agree += 1
-                diff = Y[:, k].cpu() - ktrace[:3, t]
-                chain_err = max(chain_err, diff.abs().max().item())
-            else:
-                lo = cdf[k - 1].item() if k > 0 else 0.0
-                print(f"step {t}: plain picks {k}, kernel {kk}; u = "
-                      f"{usel.item():.9g}, plain cdf[k-1], cdf[k] = "
-                      f"{lo:.9g}, {cdf[k].item():.9g}")
-            prev = ktrace[:3, t].to(dev).contiguous()
-        n_steps = steps * chunks
-        print(f"{agree}/{n_steps} selections agree; max|err| of the state "
-              f"where they do: {chain_err:.3g}")
-        require(agree >= CHAIN_AGREE * n_steps, "fused_chain selections")
-        require(chain_err <= CHAIN_ATOL, "fused_chain trace atol")
+        mode_err["binary"] = chain_vs_plain(
+            fc, "fused_chain", target, bench.theta0(dev), consts, seed=3)
+
+    with Phase("3b fused_chain mp and general vs plain"):
+        for N, d in NEW_MODES:
+            mode = "mp" if d == 1 else "general"
+            kw = dict(consts, P=(N + 1) ** d, depth=d, mode=mode, N=N,
+                      trans_sigma=cfg.trans_sigma, trans_norm=1.0)
+            err = chain_vs_plain(fc, f"fused_chain_{mode} N={N} depth={d}",
+                                 target, bench.theta0(dev), kw,
+                                 seed=30 + N + d)
+            mode_err[mode] = max(mode_err[mode], err)
+
+    with Phase("3c the time grid's fused cells vs plain"):
+        for n in (500, 100_000):
+            gt = time_analysis.grid_target(n, device=dev)
+            for N, d in GRID_FUSED:
+                spec = SamplerSpec(algo="mp" if d == 1 else "pmp", N=N,
+                                   depth=d, step_size=0.02,
+                                   selection="all_first")
+                kw = fc.chain_consts(gt, fc.spec_to_cfg(spec))
+                err = chain_vs_plain(
+                    fc, f"{fc.KERNEL_NAME[kw['mode']]} N={N} depth={d} "
+                    f"n={n}", gt, bench.theta0(dev), kw, seed=n + N + d)
+                mode_err[kw["mode"]] = max(mode_err[kw["mode"]], err)
 
     with Phase("4 sweep main path"):
         sweep_us, sweep_trace = bench.time_sweep(
@@ -292,15 +388,117 @@ def main() -> int:
             "source": "pmpx_torch/csrc/fused_chain.cu",
             "replaces": "pmpx/kernels/fused_chain.py:184",
             "launches": fused_counts["fused_chain"],
-            "max_abs_err": chain_err,
+            "max_abs_err": mode_err["binary"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
-            "ms_rng_input": ms_input, "steps_per_launch": chunk,
+            "ms_rng_input": ms_input, "steps_per_launch": chunk, "P": P,
         })
+        # fused_chain_mp and fused_chain_general: one launch of the same
+        # chunk at the grid's flat P = 1024 and conv_pmp's P = 512 tree
+        for kname, N_k, d_k in (("fused_chain_mp", 1023, 1),
+                                ("fused_chain_general", 7, 3)):
+            mode = "mp" if d_k == 1 else "general"
+            kw = dict(consts, P=(N_k + 1) ** d_k, depth=d_k, mode=mode,
+                      N=N_k, trans_sigma=cfg.trans_sigma, trans_norm=1.0)
+            uin_k = 1.0 - torch.rand((chunk * fc.U_ROWS,
+                                      fc.lane_extent(kw["P"])),
+                                     generator=g, device=dev)
+            ms = event_ms(lambda kw=kw: fc.chain_chunk(
+                x2d, y2d, th0, steps=chunk, seed=seed, **kw), 5)
+            ms_input = event_ms(lambda kw=kw, u=uin_k: fc.chain_chunk(
+                x2d, y2d, th0, steps=chunk, uin=u, **kw), 5)
+            plain_ms = event_ms(lambda kw=kw, u=uin_k: fc.fused_chain_ref(
+                x2d, y2d, th0, u, **kw), 1)
+            ops = (chain_mp_ops(kw["P"], chunk, n_slots) if mode == "mp"
+                   else chain_general_ops(N_k, d_k, chunk, n_slots))
+            b_ms, b_by = bound(ops, nbytes)
+            kernels.append({
+                "name": kname, "route": "cuda",
+                "source": "pmpx_torch/csrc/fused_chain.cu",
+                "replaces": "pmpx/kernels/fused_chain.py:184",
+                "launches": None,  # from the time grid, phase 7
+                "max_abs_err": mode_err[mode],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None,
+                "ms_rng_input": ms_input, "steps_per_launch": chunk,
+                "P": kw["P"],
+            })
         for k in kernels:
             print(f"{k['name']}: {k['ms']:.6g} ms/launch, plain "
                   f"{k['plain_ms']:.6g} ms, bound {k['bound_ms']:.6g} ms "
                   f"({k['bound_by']})")
+        print(json.dumps({"not_ported": [lstm_fused_bound()]}))
+
+    with Phase("7 time grid"):
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches()
+            grid_sweep = time_analysis.run(method="sweep", out_dir=tmp,
+                                           device=dev)
+            grid_counts = {"linreg_rss": launches["linreg_rss"]}
+            reset_launches()
+            grid_fused = time_analysis.run(
+                method="fused_chain", include_conv_pmp=True, out_dir=tmp,
+                device=dev)
+            grid_counts.update({k: v for k, v in launches.items()
+                                if k.startswith("fused_chain")})
+        print(json.dumps({"time_analysis": "sweep", **grid_sweep}))
+        print(json.dumps({"time_analysis": "fused_chain", **grid_fused}))
+        print(f"launches in the grid: {grid_counts}")
+        for kname, n in grid_counts.items():
+            require(n > 0, f"the time grid launched {kname}")
+        methods = {k: v for k, v in grid_fused.items()
+                   if k.endswith("_method")}
+        require(len(methods) == 10, "10 fused cells (2 sizes x 5)")
+        require(set(methods.values()) == {"fused_chain"},
+                f"every fused cell on fused_chain: {methods}")
+        for key in ("mp_n100000_P1024_method",
+                    "pmp_general_N7_D3_n100000_P512_method"):
+            require(key in methods, key)
+        for grid in (grid_sweep, grid_fused):
+            for k, v in grid.items():
+                if k.endswith("_us") and not k.endswith("overhead_us"):
+                    require(math.isfinite(v) and v > 0, f"{k} = {v}")
+        for k in kernels:
+            k["launches"] = grid_counts[k["name"]]
+
+        # posterior check of a flat-MP and a general fused chain at the
+        # grid's n = 100,000 (the bench cell's data and temper)
+        for label, N_k, d_k in (("mp P=1024", 1023, 1),
+                                ("general N=7 depth=3", 7, 3)):
+            pcfg = pmp.PMPConfig(N=N_k, depth=d_k, step_size=0.02,
+                                 selection="all_first")
+            run = fc.make_fused_chain(target, pcfg, chunk=bench.FUSED_CHUNK)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(7)
+            trace = run(gen, bench.theta0(dev), POSTERIOR_STEPS)
+            posterior_check(f"fused {label}", trace, POSTERIOR_BURN, target,
+                            bench)
+
+    with Phase("8 cores_sweep"):
+        from pmpx_torch.experiments import cores_sweep
+
+        cores = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for algo in ("pmp", "mp"):
+                reset_launches()
+                out = cores_sweep.run(
+                    n_data=100_000, Ps=(4, 1024), set_time=CORES_SET_TIME,
+                    algo=algo, method="fused_chain", out_dir=tmp,
+                    device=dev)
+                counts = {k: v for k, v in launches.items() if v}
+                cores[algo] = {**out, "launches": counts}
+                for P_k in (4, 1024):
+                    require(out[f"P{P_k}_iters"] > 0
+                            and math.isfinite(out[f"P{P_k}_err"]),
+                            f"cores_sweep {algo} P={P_k}")
+                require(counts.get("fused_chain_mp" if algo == "mp"
+                                   else "fused_chain", 0) > 0,
+                        f"cores_sweep {algo} went through its kernel")
+        print(json.dumps({
+            "cores_sweep": cores, "n_data": 100_000,
+            "reduced": f"wall budget {CORES_SET_TIME} s per P (pmpx's "
+                       "default 5 s, the reference's 180 s)",
+        }))
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

@@ -43,6 +43,13 @@ _SIGNATURES = {
     "pmpx_fused_chain_binary": (
         [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P]
     ),
+    "pmpx_fused_chain_mp": (
+        [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P]
+    ),
+    "pmpx_fused_chain_general": (
+        [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+         _P]
+    ),
 }
 
 

@@ -174,8 +174,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m pmpx_torch.bench")
     parser.add_argument(
         "--profile", action="store_true",
-        help="also trace 20 sweep supersteps and one fused launch with "
-             "torch.profiler and print where the time goes")
+        help="also trace 20 sweep supersteps and one fused launch of "
+             "the cell, of flat MP (P = 1024) and of the N = 7 x depth 3 "
+             "tree with torch.profiler and print where the time goes")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("pmpx_torch.bench: no CUDA device")
@@ -185,16 +186,27 @@ def main(argv=None):
     sweep_us, _ = time_sweep(target, cfg)
     fused_us, _ = time_fused(target, cfg)
     if args.profile:
-        sup = pmp.make_superstep(target, cfg)
         gen = torch.Generator(device=target.device)
         gen.manual_seed(4)
         th0 = theta0(target.device)
-        run = fc.make_fused_chain(target, cfg, chunk=FUSED_CHUNK)
-        for name, fn, iters in (
-            ("sweep", lambda: run_chain(sup, gen, th0, 20,
-                                        collect=lambda t, o: t), 20),
-            ("fused", lambda: run(gen, th0, FUSED_CHUNK), FUSED_CHUNK),
-        ):
+        # the cell's binary tree, and the time grid's flat MP (P = 1024)
+        # and conv_pmp tree (N = 7, depth 3) on the same data
+        cfgs = {"": cfg, "_mp": pmp.PMPConfig(
+            N=1023, depth=1, step_size=0.02, selection="all_first"),
+            "_general": pmp.PMPConfig(
+                N=7, depth=3, step_size=0.02, selection="all_first")}
+        paths = []
+        for tag, c in cfgs.items():
+            sup = pmp.make_superstep(target, c)
+            run = fc.make_fused_chain(target, c, chunk=FUSED_CHUNK)
+            paths += [
+                (f"sweep{tag}", lambda s=sup: run_chain(
+                    s, gen, th0, 20, collect=lambda t, o: t), 20),
+                (f"fused{tag}", lambda r=run: r(gen, th0, FUSED_CHUNK),
+                 FUSED_CHUNK),
+            ]
+        for name, fn, iters in paths:
+            fn()  # warm-up outside the trace
             prof = profile_path(fn)
             prof["supersteps"] = iters
             print(json.dumps({"profile": name, **prof}))

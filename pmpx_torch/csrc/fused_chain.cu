@@ -1,22 +1,41 @@
-// Whole chunks of a binary-tree PMP chain over Bayesian linear regression,
-// one launch per chunk.
+// Whole chunks of an MP/PMP chain over Bayesian linear regression, one
+// launch per chunk.
 //
 // Replaces the Pallas TPU kernel pmpx/kernels/fused_chain.py:_chain_kernel
-// (host wrapper make_fused_chain) in its binary mode (N = 1, depth <= 10,
-// P <= 1024) with emit="root".  Flat MP, general (N, depth) trees and
-// emit="all" are not ported here.
+// (host wrapper make_fused_chain) with emit="root", in its three modes:
+//   binary  (N = 1, P = 2^depth <= 1024)        chain_binary_kernel
+//   mp      (flat MTM, depth 1, P = N+1 <= 1024) chain_mp_kernel
+//   general (base N+1 a power of two, P = base^depth <= 1024)
+//                                               chain_general_kernel
+// emit="all" is not ported here.
 //
 // Per launch: the five sufficient statistics (sum x, sum y, sum x^2,
 // sum y^2, sum xy) in f32 over the zero-padded grids, in a fixed order.
-// Per superstep t:
+// Per superstep t, shared by the three modes:
 //   z     = sqrt(-2 log u1) cos(2 pi u2),  u in (0, 1]; eps = step * z
-//   Y[x]  = theta + sum_i [bit i of x] eps[x mod 2^(i+1)]
+//   Y[x]  = theta + S[x],  S[x] = sum_i [digit_i(x) != 0] eps[x mod base^(i+1)]
+//           (flat MP: S[x] = eps[x] for x != 0)
 //   logpi = the tempered Gaussian log-likelihood from the statistics
-//   logA  = sum_i log_sigmoid(logpi[a_i] - logpi[a_i ^ 2^i]),
-//           a_i = x mod 2^(i+1)   (the TPU kernel's roll by 2^i)
+//   logA  = the mode's walk (below)
 //   w     = exp(logA - max logA), cdf its inclusive prefix sum
 //   k     = min(#{x < P : cdf[x] < usel * sum(w)}, P - 1)
 //   theta = Y[k]; trace[:, t] = (theta, k)
+// The walks:
+//   binary:  logA = sum_i log_sigmoid(logpi[a_i] - logpi[a_i ^ 2^i]),
+//            a_i = x mod 2^(i+1)
+//   mp:      lw = logpi - (P |S_x|^2 - 2 S_x.G + Q) / (2 sigma_t^2 norm),
+//            G = sum_{x<P} S, Q = sum_{x<P} |S|^2;
+//            logA = lw - (max lw + log sum exp(lw - max lw))
+//   general: per level i, temp = base^i, m = base temp; node x < m is
+//            member x div temp of the sibling group h = x mod temp;
+//            lw[x] = logpi - (base |S_x|^2 - 2 S_x.G_h + Q_h) / (2 s_t^2 norm)
+//            with G_h, Q_h the group's sums; zm = max_{x<m} lw;
+//            T_h = max(sum_{j<base} exp(lw[h + j temp] - zm), 1e-30);
+//            logA += lw[x mod m] - zm - log T[x mod temp]  (pmpx's
+//            level-global shift, fused_chain.py:324-327)
+// The pairwise distances are taken about theta (S = Y - theta), which is
+// exact in algebra and keeps P |S|^2 - 2 S.G + Q from cancelling in f32 at
+// P = 1024, where the TPU kernel's |Y|^2 form loses digits.
 //
 // What bounds it on the H100: neither bytes nor operations.  One chain is
 // one dependent sequence of supersteps; a superstep is a few hundred
@@ -29,12 +48,19 @@
 // log-densities go through shared memory, so each tree level is one
 // shared read, with no periodization.  The (L, L) triangular matmul the
 // TPU kernel used for the cdf becomes a warp shuffle scan plus a scan of
-// the warp totals; the selection count is __syncthreads_count.  Five
-// barriers per superstep; the next root is double-buffered in shared
-// memory so that it needs no barrier of its own.  Uniforms come either
-// from an in-kernel Philox4x32-10 keyed by a per-chunk seed, or (the
-// testable path) from 17 injected rows of L lanes per superstep, laid out
-// as pmpx's rng="input": rows 0-7 u1, rows 8-15 u2, row 16 lane 0 usel.
+// the warp totals; the selection count is __syncthreads_count.  Block
+// sums and maxima are warp shuffles, then one pass over the <= 32 warp
+// partials in shared memory, in a fixed order (no atomics: deterministic).
+// The general walk's (L, L) group-membership matmuls become a loop over
+// the base <= 32 siblings in shared memory.  The next root is
+// double-buffered in shared memory so that it needs no barrier of its
+// own.  Barriers per superstep, counted from the code: 4 shared (the draw,
+// select_node's 3), plus binary 1, mp 3, general 1 + 2 depth: binary 5,
+// mp 7, general 5 + 2 depth.
+// Uniforms come either from an in-kernel Philox4x32-10 keyed by a
+// per-chunk seed, or (the testable path) from 17 injected rows of L lanes
+// per superstep, laid out as pmpx's rng="input": rows 0-7 u1, rows 8-15
+// u2, row 16 lane 0 usel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,27 +111,144 @@ __device__ __forceinline__ float log_sigmoid(float d) {
   return -(fmaxf(-d, 0.f) + log1pf(expf(-fabsf(d))));
 }
 
-// Sum over the block in a fixed order; every warp reads all warp partials
-// and reduces them the same way, so all threads get the same value.
-// `buf` must not be written again until a later barrier.
-__device__ __forceinline__ float block_sum(float v, float* buf, int nw) {
+// Sums of K values over the block in a fixed order, one barrier; every
+// warp reads all warp partials and reduces them the same way, so all
+// threads get the same values.  `buf` must not be written again until a
+// later barrier.
+template <int K>
+__device__ __forceinline__ void block_sums(float (&v)[K],
+                                           float (*buf)[kMaxWarps], int nw) {
   const int lane = threadIdx.x & 31;
-  v = warp_sum(v);
-  if (lane == 0) buf[threadIdx.x >> 5] = v;
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = warp_sum(v[j]);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) buf[j][threadIdx.x >> 5] = v[j];
+  }
   __syncthreads();
-  return warp_sum(lane < nw ? buf[lane] : 0.f);
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = warp_sum(lane < nw ? buf[j][lane] : 0.f);
 }
 
-__global__ void __launch_bounds__(kMaxL)
-chain_binary_kernel(const int* __restrict__ seed,
-                    const float* __restrict__ theta_in,
-                    const float* __restrict__ xg,
-                    const float* __restrict__ yg, int n_slots,
-                    const float* __restrict__ uin, float* __restrict__ trace,
-                    float* __restrict__ theta_out, int steps, int P,
-                    int depth, float n_data, float temper, float step_size) {
+__device__ __forceinline__ float block_sum(float v, float* buf, int nw) {
+  float a[1] = {v};
+  block_sums<1>(a, reinterpret_cast<float(*)[kMaxWarps]>(buf), nw);
+  return a[0];
+}
+
+__device__ __forceinline__ float block_max(float v, float* buf, int nw) {
+  const int lane = threadIdx.x & 31;
+  v = warp_max(v);
+  if (lane == 0) buf[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return warp_max(lane < nw ? buf[lane] : kNegInf);
+}
+
+struct ChainArgs {
+  const int* seed;
+  const float* theta_in;
+  const float* xg;
+  const float* yg;
+  int n_slots;
+  const float* uin;
+  float* trace;
+  float* theta_out;
+  int steps;
+  int P;
+  float n_data;
+  float temper;
+  float step_size;
+};
+
+// Innovations of node x for superstep t into eps[r][x] (0 at lanes >= P);
+// thread 0 also fetches the selection uniform into *usel.
+__device__ __forceinline__ void draw_innovations(const ChainArgs& a, uint2 key,
+                                                 int t, int x, int L,
+                                                 bool valid,
+                                                 float (*eps)[kMaxL],
+                                                 float* usel) {
+  float u1[3], u2[3];
+  if (a.uin != nullptr) {
+    const float* ut = a.uin + (size_t)t * kURows * L;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      u1[r] = ut[(size_t)r * L + x];
+      u2[r] = ut[(size_t)(8 + r) * L + x];
+    }
+    if (x == 0) *usel = ut[(size_t)16 * L];
+  } else {
+    const uint4 r1 = philox4x32_10(make_uint4(x, t, 0u, 0u), key);
+    const uint4 r2 = philox4x32_10(make_uint4(x, t, 1u, 0u), key);
+    u1[0] = to_unit(r1.x); u1[1] = to_unit(r1.y); u1[2] = to_unit(r1.z);
+    u2[0] = to_unit(r2.x); u2[1] = to_unit(r2.y); u2[2] = to_unit(r2.z);
+    if (x == 0) {
+      *usel =
+          to_unit(philox4x32_10(make_uint4(0xffffffffu, t, 2u, 0u), key).x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float z = sqrtf(-2.f * logf(u1[r])) * cosf(kTwoPi * u2[r]);
+    eps[r][x] = valid ? a.step_size * z : 0.f;
+  }
+}
+
+struct LinRegStats {
+  float sx, sy, sxx, syy, sxy, n_data, temper;
+
+  __device__ __forceinline__ float log_density(float b0, float b1,
+                                               float sg) const {
+    const float rss = syy + n_data * b0 * b0 + b1 * b1 * sxx +
+                      2.f * b0 * b1 * sx - 2.f * b0 * sy - 2.f * b1 * sxy;
+    const float s2 = fmaxf(sg * sg, 1e-30f);
+    return temper * (-0.5f * n_data * (kLog2Pi + logf(s2)) - rss / (2.f * s2));
+  }
+};
+
+// One categorical draw from logA over the valid lanes: max-shifted
+// weights, their inclusive scan (within the warp, then over warp totals),
+// and k = #{x < P : cdf[x] < usel * sum(w)} clamped to P - 1.  Three
+// barriers; all threads return the same k.
+__device__ __forceinline__ int select_node(float logA, bool valid, int P,
+                                           const float* usel, float* s_max,
+                                           float* s_scan, int nw) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float m = block_max(valid ? logA : kNegInf, s_max, nw);
+  const float w = valid ? expf(logA - m) : 0.f;
+  float c = w;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(kFull, c, o);
+    if (lane >= o) c += v;
+  }
+  if (lane == 31) s_scan[warp] = c;
+  __syncthreads();
+  const float tot = lane < nw ? s_scan[lane] : 0.f;
+  float off = tot;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(kFull, off, o);
+    if (lane >= o) off += v;
+  }
+  float ex = __shfl_up_sync(kFull, off, 1);
+  if (lane == 0) ex = 0.f;
+  off = __shfl_sync(kFull, ex, warp);  // sum of the earlier warps' totals
+  const float cdf = c + off;
+  const float wsum = warp_sum(tot);  // sum(w), a reduction, not cdf[-1]
+  const float u = *usel * wsum;
+  const int cnt = __syncthreads_count(valid && cdf < u);
+  return min(cnt, P - 1);
+}
+
+// The chain loop the three modes share.  Walk provides
+//   offset(x, eps, S):            S[x] from the innovations in shared memory
+//   log_accept(x, valid, S, lp):  logA of node x (all threads call it: it
+//                                 may hold barriers)
+template <class Walk>
+__device__ __forceinline__ void chain_loop(const ChainArgs& a,
+                                           const Walk& walk) {
   __shared__ float s_eps[3][kMaxL];
-  __shared__ float s_lp[kMaxL];
   __shared__ float s_stat[5][kMaxWarps];
   __shared__ float s_max[kMaxWarps];
   __shared__ float s_scan[kMaxWarps];
@@ -115,157 +258,281 @@ chain_binary_kernel(const int* __restrict__ seed,
   const int x = threadIdx.x;
   const int L = blockDim.x;
   const int nw = L >> 5;
-  const int lane = x & 31;
-  const int warp = x >> 5;
-  const bool valid = x < P;
+  const bool valid = x < a.P;
 
   // Sufficient statistics over the padded grids (zeros add nothing).
-  float a[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = x; i < n_slots; i += L) {
-    const float xv = xg[i];
-    const float yv = yg[i];
-    a[0] += xv;
-    a[1] += yv;
-    a[2] += xv * xv;
-    a[3] += yv * yv;
-    a[4] += xv * yv;
+  float st[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int i = x; i < a.n_slots; i += L) {
+    const float xv = a.xg[i];
+    const float yv = a.yg[i];
+    st[0] += xv;
+    st[1] += yv;
+    st[2] += xv * xv;
+    st[3] += yv * yv;
+    st[4] += xv * yv;
   }
-  float st[5];
-#pragma unroll
-  for (int j = 0; j < 5; ++j) st[j] = block_sum(a[j], s_stat[j], nw);
-  const float sx = st[0], sy = st[1], sxx = st[2], syy = st[3], sxy = st[4];
+  block_sums<5>(st, s_stat, nw);
+  const LinRegStats lik{st[0], st[1], st[2], st[3], st[4], a.n_data, a.temper};
 
-  if (x < 3) s_theta[0][x] = theta_in[x];
-  const uint2 key = make_uint2(seed ? static_cast<uint32_t>(*seed) : 0u,
+  if (x < 3) s_theta[0][x] = a.theta_in[x];
+  const uint2 key = make_uint2(a.seed ? static_cast<uint32_t>(*a.seed) : 0u,
                                0x5bd1e995u);
   __syncthreads();
 
-  for (int t = 0; t < steps; ++t) {
-    // (A) innovations for this node; thread 0 also fetches the selection
-    // uniform.
-    float u1[3], u2[3];
-    if (uin != nullptr) {
-      const float* ut = uin + (size_t)t * kURows * L;
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        u1[r] = ut[(size_t)r * L + x];
-        u2[r] = ut[(size_t)(8 + r) * L + x];
-      }
-      if (x == 0) s_usel = ut[(size_t)16 * L];
-    } else {
-      const uint4 r1 = philox4x32_10(make_uint4(x, t, 0u, 0u), key);
-      const uint4 r2 = philox4x32_10(make_uint4(x, t, 1u, 0u), key);
-      u1[0] = to_unit(r1.x); u1[1] = to_unit(r1.y); u1[2] = to_unit(r1.z);
-      u2[0] = to_unit(r2.x); u2[1] = to_unit(r2.y); u2[2] = to_unit(r2.z);
-      if (x == 0) {
-        s_usel = to_unit(
-            philox4x32_10(make_uint4(0xffffffffu, t, 2u, 0u), key).x);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const float z = sqrtf(-2.f * logf(u1[r])) * cosf(kTwoPi * u2[r]);
-      s_eps[r][x] = valid ? step_size * z : 0.f;
-    }
-    __syncthreads();  // barrier 1
+  for (int t = 0; t < a.steps; ++t) {
+    draw_innovations(a, key, t, x, L, valid, s_eps, &s_usel);
+    __syncthreads();
 
-    // (B) position and log-density of node x.
     const float* th = s_theta[t & 1];
-    float S[3] = {0.f, 0.f, 0.f};
-    for (int i = 0; i < depth; ++i) {
-      if ((x >> i) & 1) {
-        const int anc = x & ((2 << i) - 1);
-#pragma unroll
-        for (int r = 0; r < 3; ++r) S[r] += s_eps[r][anc];
-      }
-    }
+    float S[3];
+    walk.offset(x, s_eps, S);
     const float b0 = th[0] + S[0];
     const float b1 = th[1] + S[1];
     const float sg = th[2] + S[2];
-    const float rss = syy + n_data * b0 * b0 + b1 * b1 * sxx +
-                      2.f * b0 * b1 * sx - 2.f * b0 * sy - 2.f * b1 * sxy;
-    const float s2 = fmaxf(sg * sg, 1e-30f);
-    const float logpi =
-        temper * (-0.5f * n_data * (kLog2Pi + logf(s2)) - rss / (2.f * s2));
-    s_lp[x] = logpi;
-    __syncthreads();  // barrier 2
+    const float logpi = lik.log_density(b0, b1, sg);
+    const float logA = walk.log_accept(x, valid, S, logpi);
+    const int k = select_node(logA, valid, a.P, &s_usel, s_max, s_scan, nw);
 
-    // (C) Barker walk up the binary tree; max-shifted weights.
-    float logA = 0.f;
-    if (valid) {
-      for (int i = 0; i < depth; ++i) {
-        const int anc = x & ((2 << i) - 1);
-        logA += log_sigmoid(s_lp[anc] - s_lp[anc ^ (1 << i)]);
-      }
-    }
-    float m = warp_max(valid ? logA : kNegInf);
-    if (lane == 0) s_max[warp] = m;
-    __syncthreads();  // barrier 3
-    m = warp_max(lane < nw ? s_max[lane] : kNegInf);
-    const float w = valid ? expf(logA - m) : 0.f;
-
-    // (D) inclusive scan of w: within the warp, then over warp totals.
-    float c = w;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float v = __shfl_up_sync(kFull, c, o);
-      if (lane >= o) c += v;
-    }
-    if (lane == 31) s_scan[warp] = c;
-    __syncthreads();  // barrier 4
-    const float tot = lane < nw ? s_scan[lane] : 0.f;
-    float off = tot;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float v = __shfl_up_sync(kFull, off, o);
-      if (lane >= o) off += v;
-    }
-    float ex = __shfl_up_sync(kFull, off, 1);
-    if (lane == 0) ex = 0.f;
-    off = __shfl_sync(kFull, ex, warp);  // sum of the earlier warps' totals
-    const float cdf = c + off;
-    const float wsum = warp_sum(tot);  // sum(w), a reduction, not cdf[-1]
-    const float u = s_usel * wsum;
-
-    // (E) k = #{x < P : cdf[x] < u}, clamped; (F) next root and trace.
-    const int cnt = __syncthreads_count(valid && cdf < u);  // barrier 5
-    const int k = min(cnt, P - 1);
     if (x == k) {
       float* nx = s_theta[(t + 1) & 1];
       nx[0] = b0;
       nx[1] = b1;
       nx[2] = sg;
-      trace[t] = b0;
-      trace[steps + t] = b1;
-      trace[2 * steps + t] = sg;
-      trace[3 * steps + t] = static_cast<float>(k);
+      a.trace[t] = b0;
+      a.trace[a.steps + t] = b1;
+      a.trace[2 * a.steps + t] = sg;
+      a.trace[3 * a.steps + t] = static_cast<float>(k);
     }
   }
   __syncthreads();
-  if (x < 3) theta_out[x] = s_theta[steps & 1][x];
+  if (x < 3) a.theta_out[x] = s_theta[a.steps & 1][x];
+}
+
+// Binary tree: the Barker walk up the ancestors.
+struct BinaryWalk {
+  int depth;
+  float* lp;  // [kMaxL] log-densities
+
+  __device__ __forceinline__ void offset(int x, float (*eps)[kMaxL],
+                                         float (&S)[3]) const {
+    S[0] = S[1] = S[2] = 0.f;
+    for (int i = 0; i < depth; ++i) {
+      if ((x >> i) & 1) {
+        const int anc = x & ((2 << i) - 1);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) S[r] += eps[r][anc];
+      }
+    }
+  }
+
+  __device__ __forceinline__ float log_accept(int x, bool valid,
+                                              const float (&)[3],
+                                              float logpi) const {
+    lp[x] = logpi;
+    __syncthreads();
+    float logA = 0.f;
+    if (valid) {
+      for (int i = 0; i < depth; ++i) {
+        const int anc = x & ((2 << i) - 1);
+        logA += log_sigmoid(lp[anc] - lp[anc ^ (1 << i)]);
+      }
+    }
+    return logA;
+  }
+};
+
+// Flat MTM: one sibling group of all P nodes.
+struct MPWalk {
+  int P;
+  float denom;                // 2 sigma_t^2 norm
+  float (*sums)[kMaxWarps];   // [4][kMaxWarps]
+  float* red_max;             // [kMaxWarps]
+  float* red_sum;             // [kMaxWarps]
+  int nw;
+
+  __device__ __forceinline__ void offset(int x, float (*eps)[kMaxL],
+                                         float (&S)[3]) const {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) S[r] = x != 0 ? eps[r][x] : 0.f;
+  }
+
+  __device__ __forceinline__ float log_accept(int, bool valid,
+                                              const float (&S)[3],
+                                              float logpi) const {
+    const float sq = S[0] * S[0] + S[1] * S[1] + S[2] * S[2];
+    float g[4] = {valid ? S[0] : 0.f, valid ? S[1] : 0.f,
+                  valid ? S[2] : 0.f, valid ? sq : 0.f};
+    block_sums<4>(g, sums, nw);
+    const float cross = S[0] * g[0] + S[1] * g[1] + S[2] * g[2];
+    const float d2 = static_cast<float>(P) * sq - 2.f * cross + g[3];
+    const float lw = logpi - d2 / denom;
+    const float m = block_max(valid ? lw : kNegInf, red_max, nw);
+    const float se = block_sum(valid ? expf(lw - m) : 0.f, red_sum, nw);
+    return lw - (m + logf(se));
+  }
+};
+
+// General (N, depth) tree with a power-of-two base N + 1 = 2^lb.
+struct GeneralWalk {
+  int base;
+  int lb;  // log2(base)
+  int depth;
+  float denom;           // 2 sigma_t^2 norm
+  float (*Ssh)[kMaxL];   // [3][kMaxL] offsets S
+  float* lw_sh;          // [kMaxL] level weights
+  float* e_sh;           // [kMaxL] exp(lw - zm)
+  float* red_max;        // [kMaxWarps]
+  int nw;
+
+  __device__ __forceinline__ void offset(int x, float (*eps)[kMaxL],
+                                         float (&S)[3]) const {
+    S[0] = S[1] = S[2] = 0.f;
+    for (int i = 0; i < depth; ++i) {
+      if ((x >> (lb * i)) & (base - 1)) {
+        const int anc = x & ((1 << (lb * (i + 1))) - 1);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) S[r] += eps[r][anc];
+      }
+    }
+  }
+
+  __device__ __forceinline__ float log_accept(int x, bool valid,
+                                              const float (&S)[3],
+                                              float logpi) const {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) Ssh[r][x] = S[r];
+    __syncthreads();
+    const float sq = S[0] * S[0] + S[1] * S[1] + S[2] * S[2];
+    float logA = 0.f;
+    for (int i = 0; i < depth; ++i) {
+      const int temp = 1 << (lb * i);
+      const int m = temp << lb;
+      float lw = kNegInf;
+      if (x < m) {
+        // the sibling group of residue h: members h + j temp, j < base
+        const int h = x & (temp - 1);
+        float g0 = 0.f, g1 = 0.f, g2 = 0.f, q = 0.f;
+        for (int j = 0; j < base; ++j) {
+          const int b = h + j * temp;
+          const float s0 = Ssh[0][b], s1 = Ssh[1][b], s2 = Ssh[2][b];
+          g0 += s0;
+          g1 += s1;
+          g2 += s2;
+          q += s0 * s0 + s1 * s1 + s2 * s2;
+        }
+        const float cross = S[0] * g0 + S[1] * g1 + S[2] * g2;
+        const float gd2 = static_cast<float>(base) * sq - 2.f * cross + q;
+        lw = logpi - gd2 / denom;
+      }
+      const float zm = block_max(lw, red_max, nw);
+      if (x < m) {
+        lw_sh[x] = lw;
+        e_sh[x] = expf(lw - zm);
+      }
+      __syncthreads();
+      if (valid) {
+        const int h = x & (temp - 1);
+        float T = 0.f;
+        for (int j = 0; j < base; ++j) T += e_sh[h + j * temp];
+        T = fmaxf(T, 1e-30f);
+        logA = logA + lw_sh[x & (m - 1)] - zm - logf(T);
+      }
+    }
+    return logA;
+  }
+};
+
+__global__ void __launch_bounds__(kMaxL)
+chain_binary_kernel(ChainArgs a, int depth) {
+  __shared__ float s_lp[kMaxL];
+  chain_loop(a, BinaryWalk{depth, s_lp});
+}
+
+__global__ void __launch_bounds__(kMaxL)
+chain_mp_kernel(ChainArgs a, float denom) {
+  __shared__ float s_sums[4][kMaxWarps];
+  __shared__ float s_rmax[kMaxWarps];
+  __shared__ float s_rsum[kMaxWarps];
+  chain_loop(a, MPWalk{a.P, denom, s_sums, s_rmax, s_rsum,
+                       static_cast<int>(blockDim.x >> 5)});
+}
+
+__global__ void __launch_bounds__(kMaxL)
+chain_general_kernel(ChainArgs a, int base, int lb, int depth, float denom) {
+  __shared__ float s_S[3][kMaxL];
+  __shared__ float s_lw[kMaxL];
+  __shared__ float s_e[kMaxL];
+  __shared__ float s_rmax[kMaxWarps];
+  chain_loop(a, GeneralWalk{base, lb, depth, denom, s_S, s_lw, s_e, s_rmax,
+                            static_cast<int>(blockDim.x >> 5)});
+}
+
+bool bad_shape(int P, int L, int steps) {
+  return L < 32 || L > kMaxL || (L & 31) || P > L || P < 2 || steps < 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// One chunk of `steps` supersteps of one chain.  `L` threads (P rounded up
-// to 128, at most 1024); uin is (steps*17, L) or null for the in-kernel
-// Philox keyed by *seed; trace is (4, steps); theta_in and theta_out hold
-// (beta0, beta1, sigma).  Launches on `stream`, does not synchronize, and
-// returns the launch's cudaError_t.
+// Each entry point runs one chunk of `steps` supersteps of one chain on
+// `L` threads (P rounded up to 128, at most 1024).  uin is (steps*17, L),
+// or null for the in-kernel Philox keyed by *seed; trace is (4, steps);
+// theta_in and theta_out hold (beta0, beta1, sigma).  Each launches on
+// `stream`, does not synchronize, and returns the launch's cudaError_t.
+
 int pmpx_fused_chain_binary(const int* seed, const float* theta_in,
                             const float* xg, const float* yg, int n_slots,
                             const float* uin, float* trace, float* theta_out,
                             int steps, int P, int L, int depth, float n_data,
                             float temper, float step_size, void* stream) {
-  if (L < 32 || L > kMaxL || (L & 31) || P > L || P < 2 ||
-      (1 << depth) != P || steps < 1) {
+  if (bad_shape(P, L, steps) || depth < 1 || depth > 10 ||
+      (1 << depth) != P) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  chain_binary_kernel<<<1, L, 0, static_cast<cudaStream_t>(stream)>>>(
-      seed, theta_in, xg, yg, n_slots, uin, trace, theta_out, steps, P, depth,
-      n_data, temper, step_size);
+  const ChainArgs a{seed,      theta_in, xg, yg,     n_slots, uin,
+                    trace,     theta_out, steps, P, n_data, temper,
+                    step_size};
+  chain_binary_kernel<<<1, L, 0, static_cast<cudaStream_t>(stream)>>>(a,
+                                                                     depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Flat MP: P = N + 1 nodes (any P); denom = 2 trans_sigma^2 trans_norm.
+int pmpx_fused_chain_mp(const int* seed, const float* theta_in,
+                        const float* xg, const float* yg, int n_slots,
+                        const float* uin, float* trace, float* theta_out,
+                        int steps, int P, int L, float n_data, float temper,
+                        float step_size, float denom, void* stream) {
+  if (bad_shape(P, L, steps) || !(denom > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ChainArgs a{seed,      theta_in, xg, yg,     n_slots, uin,
+                    trace,     theta_out, steps, P, n_data, temper,
+                    step_size};
+  chain_mp_kernel<<<1, L, 0, static_cast<cudaStream_t>(stream)>>>(a, denom);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// General tree: P = base^depth nodes, base = N + 1 a power of two >= 2.
+int pmpx_fused_chain_general(const int* seed, const float* theta_in,
+                             const float* xg, const float* yg, int n_slots,
+                             const float* uin, float* trace,
+                             float* theta_out, int steps, int P, int L,
+                             int base, int depth, float n_data, float temper,
+                             float step_size, float denom, void* stream) {
+  int lb = 0;
+  while ((1 << lb) < base) ++lb;
+  if (bad_shape(P, L, steps) || base < 2 || (1 << lb) != base ||
+      depth < 1 || lb * depth > 10 || (1 << (lb * depth)) != P ||
+      !(denom > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ChainArgs a{seed,      theta_in, xg, yg,     n_slots, uin,
+                    trace,     theta_out, steps, P, n_data, temper,
+                    step_size};
+  chain_general_kernel<<<1, L, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, base, lb, depth, denom);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,12 @@ adds one where it launches its kernel and nowhere else (the plain version
 on a CPU tensor does not count).
 """
 
-launches = {"linreg_rss": 0, "fused_chain": 0}
+launches = {
+    "linreg_rss": 0,
+    "fused_chain": 0,
+    "fused_chain_mp": 0,
+    "fused_chain_general": 0,
+}
 
 
 def reset_launches() -> None:

@@ -50,7 +50,7 @@ def test_linreg_rss_kernel_matches_plain(cuda, P, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [3, 7, 10])
+@pytest.mark.parametrize("depth", [2, 3, 7, 10])  # 2: lanes above P
 def test_fused_chain_kernel_matches_plain(cuda, depth):
     g = torch.Generator(device=cuda)
     g.manual_seed(depth)
@@ -78,6 +78,66 @@ def test_fused_chain_kernel_rng_is_seeded(cuda):
     t = BayesLinReg(x, y, temper=0.05, method="fused", device=cuda)
     kw = dict(P=16, depth=4, n_data=float(t.n), temper=t.temper,
               step_size=0.05)
+    th = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    s1 = torch.tensor([5], dtype=torch.int32, device=cuda)
+    s2 = torch.tensor([6], dtype=torch.int32, device=cuda)
+    a, _ = fc.chain_chunk(t.x2d, t.y2d, th, steps=50, seed=s1, **kw)
+    b, _ = fc.chain_chunk(t.x2d, t.y2d, th, steps=50, seed=s1, **kw)
+    c, _ = fc.chain_chunk(t.x2d, t.y2d, th, steps=50, seed=s2, **kw)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+    assert bool(torch.isfinite(a).all())
+
+
+# (N, depth) of the flat-MP and general modes: the time grid's P = 4 and
+# P = 1024 flat cells, P = 200 (lanes above P), and general trees up to
+# conv_pmp's N = 7 x depth 3 and a base of 32
+NEW_MODES = [(3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2)]
+
+
+def _new_mode_kw(t, N, depth):
+    return dict(P=(N + 1) ** depth, depth=depth, n_data=float(t.n),
+                temper=t.temper, step_size=0.05,
+                mode="mp" if depth == 1 else "general", N=N,
+                trans_sigma=0.8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,depth", NEW_MODES)
+def test_fused_chain_new_modes_match_plain(cuda, N, depth):
+    """The mp and general kernels against their plain versions with
+    injected uniforms, step by step from the kernel's own state
+    (fc.replay_against_plain, as chip_smoke.py's phase 3b): >= 99% of the
+    selections equal and the states within 1e-4 where they are."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(N * 10 + depth)
+    x, y = make_synthetic_linreg(g, 20_000)
+    t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    kw = _new_mode_kw(t, N, depth)
+    steps, chunks = 30, 2
+    uin = 1.0 - torch.rand(
+        (chunks, steps * fc.U_ROWS, fc.lane_extent(kw["P"])), generator=g,
+        device=cuda)
+    th = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    name = fc.KERNEL_NAME[kw["mode"]]
+    before = launches[name]
+    got, th_k, agree, err, _ = fc.replay_against_plain(
+        t.x2d, t.y2d, th, uin, **kw)
+    assert launches[name] == before + chunks
+    assert torch.equal(got[:3, -1], th_k.cpu())
+    assert agree >= 0.99 * steps * chunks
+    assert err <= 1e-4
+    assert len(set(got[3].tolist())) > 1  # the chain moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,depth", [(1023, 1), (7, 3)])
+def test_fused_chain_new_modes_kernel_rng_is_seeded(cuda, N, depth):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    x, y = make_synthetic_linreg(g, 5000)
+    t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    kw = _new_mode_kw(t, N, depth)
     th = torch.tensor([0.0, 0.0, 1.0], device=cuda)
     s1 = torch.tensor([5], dtype=torch.int32, device=cuda)
     s2 = torch.tensor([6], dtype=torch.int32, device=cuda)

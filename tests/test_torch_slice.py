@@ -130,18 +130,20 @@ def test_pmp_config_from_jax_and_dict():
         (dict(N=1, depth=3), "root", True),
         (dict(N=1, depth=11), "root", False),
         (dict(N=1, depth=9), "all", False),
-        (dict(N=7, depth=1), "root", False),  # flat MP
-        (dict(N=3, depth=2), "root", False),  # general (N, depth)
-        (dict(N=7, depth=3), "root", False),  # conv_pmp's 512-node cell
+        (dict(N=7, depth=1), "root", True),  # flat MP
+        (dict(N=3, depth=2), "root", True),  # general (N, depth)
+        (dict(N=7, depth=3), "root", True),  # conv_pmp's 512-node cell
         (dict(N=1, depth=4, stabilizer="zscore"), "root", False),
     ],
 )
 def test_supports_binary_root_only(kw, emit, ok):
     cfg = tpmp.PMPConfig(step_size=0.1, **kw)
     assert tfc.supports(cfg, emit) is ok
-    if not ok:
-        x = np.zeros(8, np.float32)
-        tt = linreg_from_numpy(x, x, method="fused", device="cpu")
+    x = np.zeros(8, np.float32)
+    tt = linreg_from_numpy(x, x, method="fused", device="cpu")
+    if ok:
+        assert callable(tfc.make_fused_chain(tt, cfg, emit=emit))
+    else:
         with pytest.raises(ValueError):
             tfc.make_fused_chain(tt, cfg, emit=emit)
 
