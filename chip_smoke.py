@@ -16,17 +16,27 @@ Phases, each printing its wall time:
 3. ``fused_chain`` (injected uniforms) against its plain version, step by
    step from the kernel's own state; 3b. the same for its flat-MP and
    general modes; 3c. the same for every fused cell of the time grid, on
-   the grid's own data;
+   the grid's own data, and for the ESS protocol's root cells on its
+   target; 3d. the same for ``emit="all"`` in its three modes, slot by
+   slot; 3e. the chain farm (C chains in one launch) bit-equal to C
+   single-chain launches, and the ESS protocol's farm cell, chain by
+   chain, against the plain version;
 4. the sweep main path of the benchmark cell (``pmpx_torch.bench``), with
    its launch count and a posterior check;
 5. the fused main path, likewise;
 6. each kernel's time beside its plain version's and its bound (the
-   launches of each from the time grid of phase 7);
+   launches of each from the time grid of phase 7 and the ESS protocol of
+   phase 9), and the farm's supersteps per second against its chain
+   count;
 7. the time grid of the reference (``pmpx_torch.experiments.
    time_analysis``) at full width on both paths, with a posterior check of
    a flat-MP and a general fused chain;
 8. ``cores_sweep`` on the fused path for PMP and MP, its wall budget cut
-   to ``CORES_SET_TIME`` seconds per P (the one reduction).
+   to ``CORES_SET_TIME`` seconds per P (the one reduction);
+9. the ESS/MSJD protocol (``pmpx_torch.experiments.ess_msjd``) at the
+   paper's data size on the fused path, every slot's draws and the root
+   path, one farm of chains, and the superstep path's emit-all cells, with
+   the cuts listed in its JSON line.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -64,16 +74,49 @@ FUSED_BURN = 10_000  # of bench.FUSED_ITERS = 100,000
 NEW_MODES = ((3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2))
 # phase 2: (P, n) of linreg_rss: the bench cell's P = 1024 and the time
 # grid's P = 4 (padded to 8) and P = 1024 at n = 500 and 100,000; P = 200
-# and P = 8 at other sizes
+# and P = 8 at other sizes; the ESS protocol's sweep cells, P = 512 and 8
+# at n = 100,000
 RSS_SHAPES = ((1024, 100_000), (1024, 500), (4, 100_000), (4, 500),
-              (200, 100_000), (8, 5000))
+              (200, 100_000), (8, 5000), (512, 100_000), (8, 100_000))
 # phase 3c: (N, depth) of the time grid's fused cells: PMP P = 4 (depth 2,
-# lanes above P) and P = 1024, MP P = 4 and P = 1024, conv_pmp's N = 7 x 3
+# lanes above P) and P = 1024, MP P = 4 and P = 1024, conv_pmp's N = 7 x 3;
+# and of the ESS protocol's root cells (phase 9, on its target): binary and
+# flat MP at P = 8, 32, 128, 512
 GRID_FUSED = ((1, 2), (1, 10), (3, 1), (1023, 1), (7, 3))
+ESS_FUSED = ((1, 3), (1, 5), (1, 7), (1, 9), (7, 1), (31, 1), (127, 1),
+             (511, 1))
 POSTERIOR_STEPS = 50_000  # phase 7's flat-MP and general posterior chains
 POSTERIOR_BURN = 10_000
 # phase 8: the wall budget per P (pmpx's default is 5 s, the paper's 180)
 CORES_SET_TIME = 2.0
+# phase 3d: (N, depth) of emit="all": binary and flat MP at P = 8, 32, 128,
+# 512 (the ESS protocol's grid), general (3, 2) and conv_pmp's (7, 3).
+# Gates: CHAIN_AGREE of the slot draws equal; the state and the last
+# slot's within CHAIN_ATOL where their draws agree; the jump sum within
+# CHAIN_ATOL of max(1, J) where every slot agrees; slot 0's b0 bit-equal
+# to the state's.
+EMIT_SHAPES = ((1, 3), (1, 5), (1, 7), (1, 9), (7, 1), (31, 1), (127, 1),
+               (511, 1), (3, 2), (7, 3))
+# phase 3e: the farm of FARM_C chains at P = 8 and 512 (binary) and flat MP
+# P = 512 bit-equal to single chains; the ESS protocol's farm cell (ESS_CHAINS
+# chains of binary P = 512, FARM_STEPS supersteps a launch) on injected
+# uniforms against the plain version, with phase 3's gates; phase 6: its
+# throughput against the chain count
+FARM_C = 4
+FARM_STEPS = 1000
+FARM_SHAPES = ((1, 3), (1, 9), (511, 1))
+FARM_COUNTS = (1, 8, 32, 132, 264)
+# phase 9: the ESS protocol at the paper's n = 100,000; cut: 20,000 steps
+# (the paper's 1,000,000) with its burn-in of 2,000; the superstep path's
+# emit-all cells at P = 8 and 512 only, 1000 steps with a burn-in of 200
+ESS_N = 100_000
+ESS_PS = (8, 32, 128, 512)
+ESS_STEPS = 20_000
+ESS_BURN = 2_000
+ESS_CHAINS = 8
+ESS_SWEEP_PS = (8, 512)
+ESS_SWEEP_STEPS = 1000
+ESS_SWEEP_BURN = 200
 
 
 class Phase:
@@ -106,9 +149,11 @@ def run_tool(cmd: list[str]) -> str:
     return res.stdout.strip()
 
 
-def event_ms(fn, reps: int) -> float:
-    """Mean ms of fn() on the card over ``reps`` calls, after one warm-up."""
-    fn()
+def event_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean ms of fn() on the card over ``reps`` calls, after one warm-up
+    unless ``warmup`` is False."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -163,6 +208,15 @@ def chain_general_ops(N: int, depth: int, steps: int, n_slots: int) -> float:
     levels = sum(base ** (i + 1) * (9 * base + 14) for i in range(depth))
     levels += P * depth * (base + 5)
     return steps * (P * per_node + levels) + 8 * n_slots
+
+
+def emit_ops(P: int, steps: int) -> float:
+    """The f32 operations emit="all" adds to a chain launch, per slot and
+    superstep: a binary search of the cdf (2 log2 P compares and index
+    steps), its threshold 1, the jump from the previous slot 9 (3
+    differences, 3 squares, 2 adds, the block sum's add); the 3P gathers
+    and P stored floats are bytes, counted by the caller."""
+    return steps * P * (2.0 * math.log2(P) + 1 + 9)
 
 
 def lstm_fused_bound(P: int = 8, B: int = 60_000, T: int = 28, F: int = 28,
@@ -236,8 +290,10 @@ def main() -> int:
                            f"{pmpx_torch.__file__}, not from {here}")
     from pmpx_torch import _build, bench
     from pmpx_torch.config import SamplerSpec
-    from pmpx_torch.experiments import time_analysis
+    from pmpx_torch.experiments import ess_msjd, time_analysis
     from pmpx_torch.kernels import fused_chain as fc
+    from pmpx_torch.metrics.recorder import load_trace
+    from pmpx_torch.parallel import chains as farm_mod
     from pmpx_torch.kernels import launches, reset_launches
     from pmpx_torch.kernels.linreg import (
         batched_rss, batched_rss_ref, pad_proposals,
@@ -312,7 +368,12 @@ def main() -> int:
                                  seed=30 + N + d)
             mode_err[mode] = max(mode_err[mode], err)
 
-    with Phase("3c the time grid's fused cells vs plain"):
+    # the ESS protocol's target (phases 3c-3e, 6 and 9): n = 100,000,
+    # temper 1/2000, the data run() draws from seed 0
+    et = ess_msjd.ess_target(ESS_N, device=dev)
+
+    with Phase("3c the time grid's and the ESS protocol's fused cells vs "
+               "plain"):
         for n in (500, 100_000):
             gt = time_analysis.grid_target(n, device=dev)
             for N, d in GRID_FUSED:
@@ -324,6 +385,100 @@ def main() -> int:
                     fc, f"{fc.KERNEL_NAME[kw['mode']]} N={N} depth={d} "
                     f"n={n}", gt, bench.theta0(dev), kw, seed=n + N + d)
                 mode_err[kw["mode"]] = max(mode_err[kw["mode"]], err)
+        for N, d in ESS_FUSED:
+            kw = fc.chain_consts(et, pmp.PMPConfig(
+                N=N, depth=d, step_size=0.02, selection="all_first"))
+            err = chain_vs_plain(
+                fc, f"{fc.KERNEL_NAME[kw['mode']]} N={N} depth={d} "
+                f"n={ESS_N} (ESS target)", et, bench.theta0(dev), kw,
+                seed=3000 + N + d)
+            mode_err[kw["mode"]] = max(mode_err[kw["mode"]], err)
+    # max |err| of the state per emit="all" mode (phase 3d)
+    emit_err = {"binary": 0.0, "mp": 0.0, "general": 0.0}
+
+    with Phase("3d fused_chain emit='all' vs plain"):
+        for N, d in EMIT_SHAPES:
+            ecfg = pmp.PMPConfig(N=N, depth=d, step_size=0.02,
+                                 selection="all_first")
+            kw = fc.chain_consts(et, ecfg)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(300 + N + d)
+            L_e = fc.lane_extent(kw["P"])
+            uin = 1.0 - torch.rand((2, 100 * fc.U_ROWS, L_e), generator=gen,
+                                   device=dev)
+            uemit = 1.0 - torch.rand((2, 100, L_e), generator=gen,
+                                     device=dev)
+            out = fc.replay_emit_against_plain(
+                et.x2d, et.y2d, bench.theta0(dev), uin, uemit, **kw)
+            label = f"{fc.KERNEL_NAME_ALL[kw['mode']]} N={N} depth={d}"
+            for miss in out["misses"][:5]:
+                print(f"{label}: step {miss[0]} slot {miss[1]}: plain draws "
+                      f"node {miss[2]}, kernel {miss[3]}")
+            print(f"{label} (P={kw['P']}): {out['slots_agree']}/"
+                  f"{out['slots']} slot draws agree over 200 supersteps; "
+                  f"max|err| of the states {out['state_err']:.3g}, of the "
+                  f"jump sums {out['jump_err']:.3g} (relative to "
+                  f"max(1, J)); slot 0 b0 bit-equal to the state's: "
+                  f"{out['b0_root_equal']}")
+            require(out["slots_agree"] >= CHAIN_AGREE * out["slots"],
+                    f"{label} slot draws")
+            require(out["state_err"] <= CHAIN_ATOL, f"{label} states")
+            require(out["jump_err"] <= CHAIN_ATOL, f"{label} jump sums")
+            require(out["b0_root_equal"], f"{label} emit_b0[0] == root b0")
+            emit_err[kw["mode"]] = max(emit_err[kw["mode"]],
+                                       out["state_err"])
+
+    with Phase("3e chain farm vs single chains and plain"):
+        th_farm = torch.tensor([[0.0, 0.0, 1.0], [-1.0, 2.0, 0.5],
+                                [0.5, -0.5, 1.5], [-2.0, 1.0, 0.8]],
+                               device=dev)[:FARM_C]
+        for N, d in FARM_SHAPES:
+            fcfg = pmp.PMPConfig(N=N, depth=d, step_size=0.02,
+                                 selection="all_first")
+            farm = farm_mod.make_chain_farm_fused(et, fcfg, 1000, chunk=500)
+            got = farm(farm_mod.chain_generators(11, FARM_C, dev), th_farm)
+            single = fc.make_fused_chain(et, fcfg, chunk=500)
+            gens = farm_mod.chain_generators(11, FARM_C, dev)
+            for c in range(FARM_C):
+                require(torch.equal(got[c], single(gens[c], th_farm[c], 1000)),
+                        f"farm chain {c} of N={N} depth={d} bit-equal to "
+                        f"its single chain")
+            require(bool(torch.isfinite(got).all()), "finite farm roots")
+            print(f"farm of {FARM_C} chains, N={N} depth={d} "
+                  f"(P={fcfg.P}), 2 launches of 500 supersteps: every chain "
+                  f"bit-equal to its single-chain run")
+        # phase 9's farm cell at its own shape, on injected uniforms
+        fcfg = pmp.PMPConfig(N=1, depth=9, step_size=0.02,
+                             selection="all_first")
+        kw = fc.chain_consts(et, fcfg)
+        farm = farm_mod.make_chain_farm_fused(et, fcfg, FARM_STEPS,
+                                              chunk=FARM_STEPS, rng="input")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(39)
+        th_cell = bench.theta0(dev).expand(ESS_CHAINS, 3).contiguous()
+        uin_f = 1.0 - torch.rand(
+            (1, ESS_CHAINS, FARM_STEPS * fc.U_ROWS, fc.lane_extent(kw["P"])),
+            generator=gen, device=dev)
+        before = launches[fc.FARM_KERNEL]
+        roots = farm(farm_mod.chain_generators(39, ESS_CHAINS, dev), th_cell,
+                     uin=uin_f)
+        require(launches[fc.FARM_KERNEL] == before + 1,
+                "the farm cell in one launch")
+        farm_err = 0.0
+        for c in range(ESS_CHAINS):
+            agree, err, misses = fc.replay_roots_against_plain(
+                et.x2d, et.y2d, th_cell[c], uin_f[0, c], roots[c], **kw)
+            for t, k, kk, u, lo, hi in misses:
+                print(f"farm chain {c} step {t}: plain picks {k}, kernel "
+                      f"{kk}; u = {u:.9g}, plain cdf[k-1], cdf[k] = "
+                      f"{lo:.9g}, {hi:.9g}")
+            print(f"farm of {ESS_CHAINS}, chain {c} (P={kw['P']}): "
+                  f"{agree}/{FARM_STEPS} selections agree with the plain "
+                  f"version; max|err| of the state where they do: {err:.3g}")
+            require(agree >= CHAIN_AGREE * FARM_STEPS,
+                    f"farm chain {c} selections")
+            require(err <= CHAIN_ATOL, f"farm chain {c} trace atol")
+            farm_err = max(farm_err, err)
 
     with Phase("4 sweep main path"):
         sweep_us, sweep_trace = bench.time_sweep(
@@ -423,6 +578,106 @@ def main() -> int:
                 "ms_rng_input": ms_input, "steps_per_launch": chunk,
                 "P": kw["P"],
             })
+        # emit="all" at the ESS protocol's largest P = 512, one
+        # 1000-superstep launch on its target, beside emit="root" at the
+        # same shape
+        et_slots = et.x2d.numel()
+        steps_e = 1000
+        for kname, N_k, d_k in (("fused_chain_all", 1, 9),
+                                ("fused_chain_mp_all", 511, 1),
+                                ("fused_chain_general_all", 7, 3)):
+            kw = fc.chain_consts(et, pmp.PMPConfig(
+                N=N_k, depth=d_k, step_size=0.02, selection="all_first"))
+            P_k = kw["P"]
+            L_k = fc.lane_extent(P_k)
+            uin_k = 1.0 - torch.rand((steps_e * fc.U_ROWS, L_k),
+                                     generator=g, device=dev)
+            uem_k = 1.0 - torch.rand((steps_e, L_k), generator=g,
+                                     device=dev)
+            ms = event_ms(lambda kw=kw: fc.chain_chunk(
+                et.x2d, et.y2d, th0, steps=steps_e, seed=seed, emit="all",
+                **kw), 5)
+            ms_root = event_ms(lambda kw=kw: fc.chain_chunk(
+                et.x2d, et.y2d, th0, steps=steps_e, seed=seed, **kw), 5)
+            ms_input = event_ms(lambda kw=kw, u=uin_k, e=uem_k:
+                                fc.chain_chunk(et.x2d, et.y2d, th0,
+                                               steps=steps_e, uin=u,
+                                               uemit=e, emit="all", **kw), 5)
+            plain_ms = event_ms(lambda kw=kw, u=uin_k, e=uem_k:
+                                fc.fused_chain_ref(et.x2d, et.y2d, th0, u,
+                                                   uemit=e, **kw), 1)
+            if kw["mode"] == "binary":
+                ops = chain_ops(P_k, d_k, steps_e, et_slots)
+            elif kw["mode"] == "mp":
+                ops = chain_mp_ops(P_k, steps_e, et_slots)
+            else:
+                ops = chain_general_ops(N_k, d_k, steps_e, et_slots)
+            ops += emit_ops(P_k, steps_e)
+            # grids read once; per superstep the 8-row trace and P emitted
+            # b0 written; the seed and states
+            nbytes = 4.0 * (2 * et_slots + (8 + P_k) * steps_e + 6 + 1)
+            b_ms, b_by = bound(ops, nbytes)
+            kernels.append({
+                "name": kname, "route": "cuda",
+                "source": "pmpx_torch/csrc/fused_chain.cu",
+                "replaces": "pmpx/kernels/fused_chain.py:348",
+                "launches": None,  # from the ESS protocol, phase 9
+                "max_abs_err": emit_err[kw["mode"]],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None,
+                "ms_rng_input": ms_input, "ms_emit_root": ms_root,
+                "steps_per_launch": steps_e, "P": P_k,
+            })
+
+        # the farm: ESS_CHAINS chains of binary P = 512 in one
+        # 1000-superstep launch (phase 9's farm cell), beside its plain
+        # version (each chain's plain loop)
+        kw = fc.chain_consts(et, pmp.PMPConfig(
+            N=1, depth=9, step_size=0.02, selection="all_first"))
+        thC = bench.theta0(dev).expand(ESS_CHAINS, 3).contiguous()
+        seedsC = torch.arange(ESS_CHAINS, dtype=torch.int32, device=dev)
+        ms = event_ms(lambda: fc.chain_chunk(
+            et.x2d, et.y2d, thC, steps=steps_e, seed=seedsC, **kw), 5)
+        uinC = 1.0 - torch.rand((ESS_CHAINS, steps_e * fc.U_ROWS, 512),
+                                generator=g, device=dev)
+        plain_ms = event_ms(lambda: [fc.fused_chain_ref(
+            et.x2d, et.y2d, thC[c], uinC[c], **kw)
+            for c in range(ESS_CHAINS)], 1, warmup=False)
+        ops = ESS_CHAINS * chain_ops(512, 9, steps_e, 0) + 8 * et_slots
+        nbytes = 4.0 * (2 * et_slots + ESS_CHAINS * (4 * steps_e + 6 + 1))
+        b_ms, b_by = bound(ops, nbytes)
+        kernels.append({
+            "name": "fused_chain_farm", "route": "cuda",
+            "source": "pmpx_torch/csrc/fused_chain.cu",
+            "replaces": "pmpx/kernels/fused_chain.py:184",
+            "farm_of": "pmpx/parallel/chains.py:83",
+            "launches": None,  # from the ESS protocol's farm cell, phase 9
+            "max_abs_err": farm_err,  # against plain, phase 3e
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "steps_per_launch": steps_e, "P": 512, "chains": ESS_CHAINS,
+        })
+
+        # the farm's throughput: supersteps per second of the whole card
+        # against the chain count, one 1000-superstep launch each
+        farm_curve = []
+        for N_k, d_k in ((1, 3), (1, 9)):
+            kw = fc.chain_consts(et, pmp.PMPConfig(
+                N=N_k, depth=d_k, step_size=0.02, selection="all_first"))
+            for C in FARM_COUNTS:
+                thC = bench.theta0(dev).expand(C, 3).contiguous()
+                seedsC = torch.arange(C, dtype=torch.int32, device=dev)
+                ms = event_ms(lambda kw=kw, t=thC, sd=seedsC: fc.chain_chunk(
+                    et.x2d, et.y2d, t, steps=steps_e, seed=sd, **kw), 3)
+                farm_curve.append({
+                    "P": kw["P"], "chains": C, "ms_per_launch": ms,
+                    "supersteps_per_s": C * steps_e / (ms * 1e-3)})
+                print(f"farm P={kw['P']} C={C}: {ms:.6g} ms per "
+                      f"{steps_e}-superstep launch, "
+                      f"{C * steps_e / (ms * 1e-3):.6g} supersteps/s")
+        print(json.dumps({"farm_throughput": farm_curve, "device": name,
+                          "power": smi}))
+
         for k in kernels:
             print(f"{k['name']}: {k['ms']:.6g} ms/launch, plain "
                   f"{k['plain_ms']:.6g} ms, bound {k['bound_ms']:.6g} ms "
@@ -439,8 +694,8 @@ def main() -> int:
             grid_fused = time_analysis.run(
                 method="fused_chain", include_conv_pmp=True, out_dir=tmp,
                 device=dev)
-            grid_counts.update({k: v for k, v in launches.items()
-                                if k.startswith("fused_chain")})
+            grid_counts.update({k: launches[k]
+                                for k in fc.KERNEL_NAME.values()})
         print(json.dumps({"time_analysis": "sweep", **grid_sweep}))
         print(json.dumps({"time_analysis": "fused_chain", **grid_fused}))
         print(f"launches in the grid: {grid_counts}")
@@ -459,7 +714,8 @@ def main() -> int:
                 if k.endswith("_us") and not k.endswith("overhead_us"):
                     require(math.isfinite(v) and v > 0, f"{k} = {v}")
         for k in kernels:
-            k["launches"] = grid_counts[k["name"]]
+            if k["name"] in grid_counts:
+                k["launches"] = grid_counts[k["name"]]
 
         # posterior check of a flat-MP and a general fused chain at the
         # grid's n = 100,000 (the bench cell's data and temper)
@@ -499,6 +755,99 @@ def main() -> int:
             "reduced": f"wall budget {CORES_SET_TIME} s per P (pmpx's "
                        "default 5 s, the reference's 180 s)",
         }))
+
+    with Phase("9 ess_msjd"):
+        ess_runs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            def drive(label, **kw):
+                """One run() of the protocol, its launches counted from 0."""
+                reset_launches()
+                out = ess_msjd.run(n_data=ESS_N, out_dir=f"{tmp}/{label}",
+                                   device=dev, **kw)
+                counts = {k: v for k, v in launches.items() if v}
+                saved = load_trace(f"{tmp}/{label}/ess_msjd.npz")
+                with open(f"{tmp}/{label}/ess_msjd.json") as fh:
+                    cells = json.load(fh)["rows"]
+                wall = dict(zip(cells, saved["rows"][:, 2].tolist()))
+                ess_runs[label] = {"summary": out, "launches": counts}
+                print(json.dumps({"ess_msjd": label, **out,
+                                  "launches": counts, "wall_s": wall}))
+                for k, v in out.items():
+                    require(math.isfinite(v) and v > 0, f"{label}: {k} = {v}")
+                return out, counts, saved
+
+            fused = dict(Ps=ESS_PS, num_steps=ESS_STEPS, burn_in=ESS_BURN,
+                         method="fused_chain")
+            n_launch_all = 2 * len(ESS_PS) * ESS_STEPS // 500
+            n_launch_root = 2 * len(ESS_PS) * ESS_STEPS // 1000
+            _, counts, _ = drive("fused_all", trace="all", **fused)
+            require(counts == {"fused_chain_all": n_launch_all,
+                               "fused_chain_mp_all": n_launch_all},
+                    f"the emit-all cells all on fused_chain: {counts}")
+            _, counts, saved = drive("fused_root", trace="root", **fused)
+            require(counts == {"fused_chain": n_launch_root,
+                               "fused_chain_mp": n_launch_root},
+                    f"the root cells all on fused_chain: {counts}")
+            # the posterior mean of (b0, b1) at P = 512, both algorithms
+            ls, sd = bench.least_squares(et)
+            for i, algo in enumerate(("mp", "pmp")):
+                row = i * len(ESS_PS) + ESS_PS.index(512)
+                mean = torch.tensor(saved["root_mean"][row, :2])
+                z = ((mean - ls) / sd).abs()
+                print(f"ess_msjd {algo} P=512: posterior mean (b0, b1) = "
+                      f"{mean.tolist()}, least squares = {ls.tolist()}, "
+                      f"sd = {sd.tolist()}, |z| = {z.tolist()}")
+                require(bool((z < 4.0).all()),
+                        f"ess_msjd {algo} P=512 mean within 4 sd")
+            _, counts, _ = drive("fused_chains8", trace="root",
+                                 chains=ESS_CHAINS, algos=("pmp",),
+                                 **dict(fused, Ps=(512,)))
+            require(counts == {"fused_chain_farm": 2 * ESS_STEPS // 1000},
+                    f"the farm cell in one launch per chunk: {counts}")
+            _, counts, _ = drive("sweep_all", trace="all", method="sweep",
+                                 Ps=ESS_SWEEP_PS, num_steps=ESS_SWEEP_STEPS,
+                                 burn_in=ESS_SWEEP_BURN)
+            require(set(counts) == {"linreg_rss"},
+                    f"the superstep cells on linreg_rss: {counts}")
+            # the emit-all cell on conv_pmp's N = 7 x depth 3 tree (the
+            # general mode; not in pmpx's P grid, which is binary and flat)
+            reset_launches()
+            gspec = SamplerSpec(algo="pmp", N=7, depth=3, step_size=0.02,
+                                selection="all_first")
+            res = ess_msjd._emit_all_cell_fused(
+                et, gspec, bench.theta0(dev), ESS_STEPS, ESS_BURN, ESS_STEPS,
+                f"{tmp}/general", 0, False, "pmp_general_N7_D3")
+            counts = {k: v for k, v in launches.items() if v}
+            root_e, root_m, all_e, all_m, dt = res
+            print(f"general emit-all cell: {dt:.6g} s wall")
+            out = {"pmp_general_N7_D3_P512_all_ess_per_s": all_e / dt,
+                   "pmp_general_N7_D3_P512_all_msjd_per_s": all_m / dt,
+                   "pmp_general_N7_D3_P512_ess_per_s": root_e / dt,
+                   "pmp_general_N7_D3_P512_msjd_per_s": root_m / dt}
+            ess_runs["general_all"] = {"summary": out, "launches": counts}
+            print(json.dumps({"ess_msjd": "general_all", **out,
+                              "launches": counts}))
+            for k, v in out.items():
+                require(math.isfinite(v) and v > 0, f"general: {k} = {v}")
+            require(counts == {"fused_chain_general_all":
+                               2 * ESS_STEPS // 500},
+                    f"the general emit-all cell on fused_chain: {counts}")
+        print(json.dumps({
+            "ess_msjd_reduced": [
+                f"num_steps {ESS_STEPS} with burn-in {ESS_BURN} (the "
+                "paper's 1,000,000 and 2,000)",
+                f"superstep-path emit-all cells only at P in "
+                f"{list(ESS_SWEEP_PS)}, {ESS_SWEEP_STEPS} steps with burn-in "
+                f"{ESS_SWEEP_BURN} (host-bound path)",
+            ], "n_data": ESS_N}))
+        phase9 = {"fused_chain_all": "fused_all",
+                  "fused_chain_mp_all": "fused_all",
+                  "fused_chain_general_all": "general_all",
+                  "fused_chain_farm": "fused_chains8"}
+        for k in kernels:
+            if k["name"] in phase9:
+                k["launches"] = ess_runs[phase9[k["name"]]]["launches"][
+                    k["name"]]
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

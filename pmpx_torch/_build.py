@@ -40,15 +40,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pmpx_linreg_rss": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "pmpx_linreg_rss_tile": [],
-    "pmpx_fused_chain_binary": (
-        [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P]
-    ),
-    "pmpx_fused_chain_mp": (
-        [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P]
-    ),
-    "pmpx_fused_chain_general": (
-        [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
-         _P]
+    "pmpx_fused_chain": (
+        [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+         _I, _F, _F, _F, _F, _P]
     ),
 }
 

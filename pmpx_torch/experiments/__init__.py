@@ -4,6 +4,7 @@
 | Module        | Reference protocol |
 |---------------|--------------------|
 | cores_sweep   | convergence vs parallelism P with a wall-clock cap, ``MP_and_PMP_Convergence_with_Cores`` |
+| ess_msjd      | ESS/s and MSJD/s vs P, root path or every slot's draw, ``MP_and_PMP_ESS_per_sec_and_MSJD_per_sec`` |
 | time_analysis | per-iteration time grid {500, 100k} x {4, 1024}, ``MP_and_PMP_time_analysis`` |
 
 Every module exposes ``run(**overrides) -> dict`` (summary scalars, the
@@ -14,5 +15,6 @@ caller names another); traces are saved via
 
 EXPERIMENTS = [
     "cores_sweep",
+    "ess_msjd",
     "time_analysis",
 ]

@@ -12,9 +12,15 @@ import torch
 
 from pmpx_torch._device import resolve_device
 from pmpx_torch.samplers.pmp import PMPConfig
+from pmpx_torch.targets import analytic
 from pmpx_torch.targets.linreg import BayesLinReg
 
-__all__ = ["linreg_from_numpy", "pmp_config_from_jax", "theta_from_numpy"]
+__all__ = [
+    "analytic_from_jax",
+    "linreg_from_numpy",
+    "pmp_config_from_jax",
+    "theta_from_numpy",
+]
 
 
 def linreg_from_numpy(x, y, *, temper: float = 1.0, method: str = "auto",
@@ -43,3 +49,15 @@ def theta_from_numpy(theta, *, device=None) -> torch.Tensor:
     return torch.tensor(
         np.asarray(theta, np.float32), device=resolve_device(device)
     )
+
+
+def analytic_from_jax(target):
+    """The port's analytic target (``Gaussian1D``, ``StandardMVN`` or
+    ``Banana``) with the fields of a ``pmpx.targets`` one of the same
+    class name."""
+    cls = getattr(analytic, type(target).__name__, None)
+    if cls is None or not dataclasses.is_dataclass(cls):
+        raise TypeError(f"no analytic target of the port matches "
+                        f"{type(target).__name__}")
+    return cls(**{f.name: getattr(target, f.name)
+                  for f in dataclasses.fields(cls)})

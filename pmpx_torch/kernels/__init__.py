@@ -3,7 +3,9 @@ version.
 
 ``launches`` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else (the plain version
-on a CPU tensor does not count).
+on a CPU tensor does not count).  ``fused_chain`` counts one chain with
+``emit="root"`` per mode, ``*_all`` one chain with ``emit="all"``, and
+``fused_chain_farm`` a launch of a farm of chains in any mode.
 """
 
 launches = {
@@ -11,6 +13,10 @@ launches = {
     "fused_chain": 0,
     "fused_chain_mp": 0,
     "fused_chain_general": 0,
+    "fused_chain_all": 0,
+    "fused_chain_mp_all": 0,
+    "fused_chain_general_all": 0,
+    "fused_chain_farm": 0,
 }
 
 

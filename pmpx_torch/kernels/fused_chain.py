@@ -1,22 +1,31 @@
 """Whole chunks of an MP/PMP chain over Bayesian linreg in one launch
-(port of ``pmpx/kernels/fused_chain.py`` with ``emit="root"``).
+(port of ``pmpx/kernels/fused_chain.py``, ``emit="root"`` and
+``emit="all"``), and a farm of such chains in one launch.
 
 Three modes, chosen from the config as ``pmpx`` chooses them
 (:func:`chain_mode`): ``binary`` (N = 1), ``mp`` (flat MTM, depth 1) and
 ``general`` ((N, depth) trees with a power-of-two base N + 1).
-:func:`chain_chunk` runs ``steps`` supersteps of one chain: the mode's CUDA
-kernel in ``csrc/fused_chain.cu`` for CUDA tensors, its plain version
+:func:`chain_chunk` runs ``steps`` supersteps of one chain, or of a farm
+of C chains (one block each): the mode's CUDA kernel in
+``csrc/fused_chain.cu`` for CUDA tensors, its plain version
 :func:`fused_chain_ref` for CPU tensors.  :func:`make_fused_chain` builds
 the chain runner over chunks, the counterpart of ``pmpx``'s.
+
+``emit="all"`` is the reference's ESS protocol (``selection="all_first"``):
+each superstep draws P iid slots from the weights, slot 0's draw is the
+next state, and the kernel emits every slot's b0, the within-step
+squared-jump sum and the last slot's state (:func:`ref_emit`).
 
 Uniforms: ``rng="kernel"`` draws them in the kernel from a Philox stream
 keyed by one seed per chunk, the seeds drawn from the caller's
 ``torch.Generator``; ``rng="input"`` takes 17 rows of L lanes per
 superstep (rows 0-7 u1, 8-15 u2 for Box-Muller, of which rows 0-2 and lanes
 < P are used; row 16 lane 0 the selection uniform), all in (0, 1] and laid
-out as ``pmpx``'s, so both packages can be fed the same numbers.  On the
-CPU there is no in-kernel generator, so ``rng="kernel"`` draws input
-uniforms from the generator instead, as ``pmpx`` does off the TPU.
+out as ``pmpx``'s, so both packages can be fed the same numbers;
+``emit="all"`` adds one (steps, L) row of slot uniforms per superstep,
+slot j on lane j, as ``pmpx``'s ``uemit``.  On the CPU there is no
+in-kernel generator, so ``rng="kernel"`` draws input uniforms from the
+generator instead, as ``pmpx`` does off the TPU.
 """
 
 from __future__ import annotations
@@ -39,11 +48,17 @@ __all__ = [
     "chain_chunk",
     "fused_chain_ref",
     "ref_step",
+    "ref_emit",
     "replay_against_plain",
+    "replay_roots_against_plain",
+    "replay_emit_against_plain",
     "suff_stats",
     "lane_extent",
     "KERNEL_NAME",
+    "KERNEL_NAME_ALL",
+    "FARM_KERNEL",
     "U_ROWS",
+    "EMIT_MAX_L",
 ]
 
 _LANES = 128
@@ -55,12 +70,26 @@ U_ROWS = 17  # injected uniform rows per superstep
 # that supports() answers exactly as pmpx's does and both packages time
 # the same path per cell.
 _GROUP_MAT_BYTES = 8 * 2**20
-# the launch counter (pmpx_torch.kernels.launches) of each mode's kernel
+# emit="all" caps the lane extent at 512, as pmpx's supports() does (its
+# (L, L) compare and one-hot intermediates had to fit VMEM); the CUDA
+# kernel sizes its emit buffers for it
+EMIT_MAX_L = 512
+# the launch counter (pmpx_torch.kernels.launches) of each mode's kernel,
+# for one chain with emit="root", one chain with emit="all", and a farm of
+# chains (emit="root", any mode)
 KERNEL_NAME = {
     "binary": "fused_chain",
     "mp": "fused_chain_mp",
     "general": "fused_chain_general",
 }
+KERNEL_NAME_ALL = {
+    "binary": "fused_chain_all",
+    "mp": "fused_chain_mp_all",
+    "general": "fused_chain_general_all",
+}
+FARM_KERNEL = "fused_chain_farm"
+# the mode argument of the C entry point
+_MODE_ID = {"binary": 0, "mp": 1, "general": 2}
 
 
 def lane_extent(P: int) -> int:
@@ -70,15 +99,15 @@ def lane_extent(P: int) -> int:
 
 def supports(cfg, emit: str = "root") -> bool:
     """Whether this port implements cfg's sampler exactly: what
-    ``pmpx.kernels.fused_chain.supports(cfg, "root")`` answers (P <= 1024,
+    ``pmpx.kernels.fused_chain.supports(cfg, emit)`` answers (P <= 1024,
     stabilizer "none"; binary trees and flat MP of any size, general
     (N, depth) trees with a power-of-two base whose group matrices would
-    fit pmpx's 8 MiB).  ``emit="all"`` is not ported: False."""
-    if emit != "root":
-        return False
+    fit pmpx's 8 MiB; ``emit="all"`` only up to a lane extent of 512)."""
     base = cfg.N + 1
     P = base**cfg.depth
     if not (P <= _MAX_P and cfg.stabilizer == "none"):
+        return False
+    if emit == "all" and lane_extent(P) > EMIT_MAX_L:
         return False
     if cfg.N == 1 or cfg.depth == 1:
         return True
@@ -216,28 +245,91 @@ def ref_step(stats, theta, u1, u2, usel, *, depth, n_data, temper,
     return Y, logA, w, cdf, u, k
 
 
+def ref_emit(Y, w, cdf, ue):
+    """The ``emit="all"`` draws of one superstep, from :func:`ref_step`'s
+    positions ``Y`` (3, P), weights ``w`` and ``cdf``, and the slot
+    uniforms ``ue`` (>= P entries, slot j at j).
+
+    ``k[j] = min(#{l < P : cdf[l] < ue[j] * sum(w)}, P - 1)`` for every
+    slot j < P (searchsorted side="left"; ``sum(w)`` is the reduction the
+    root selection uses, not ``cdf[-1]``).  Returns ``(k (P,), sel (3, P),
+    J)``: the draws, their states, and the within-step squared-jump sum
+    ``J = sum_{j>=1} |sel[:, j] - sel[:, j-1]|^2``.
+    """
+    P = Y.shape[1]
+    thr = ue[:P] * w.sum()
+    k = torch.clamp((cdf[None, :] < thr[:, None]).sum(1), max=P - 1)
+    sel = Y[:, k]
+    d = sel[:, 1:] - sel[:, :-1]
+    return k, sel, (d * d).sum()
+
+
 def fused_chain_ref(xg, yg, theta, uin, *, P, depth, n_data, temper,
                     step_size, mode="binary", N=1, trans_sigma=1.0,
-                    trans_norm=1.0):
-    """Plain PyTorch version of :func:`chain_chunk` with injected uniforms:
-    a step-by-step loop over the same 17-row layout.  Returns
-    ``(trace (4, steps), theta_out (3,))``, trace rows (beta0, beta1,
-    sigma, selected node)."""
+                    trans_norm=1.0, uemit=None):
+    """Plain PyTorch version of :func:`chain_chunk` for one chain with
+    injected uniforms: a step-by-step loop over the same 17-row layout.
+
+    ``emit="root"`` (``uemit`` None): returns ``(trace (4, steps),
+    theta_out (3,))``, trace rows (beta0, beta1, sigma, selected node).
+    ``emit="all"`` (``uemit`` (steps, L)): returns ``(trace (8, steps),
+    theta_out (3,), emit_b0 (steps, P))``, trace rows 0-2 the state (slot
+    0's draw), 3 the jump sum, 4-6 the last slot's draw, 7 slot 0's node.
+    """
     steps = uin.shape[0] // U_ROWS
     stats = suff_stats(xg, yg)
-    trace = torch.zeros((4, steps), dtype=torch.float32, device=xg.device)
+    emit_all = uemit is not None
+    trace = torch.zeros((8 if emit_all else 4, steps), dtype=torch.float32,
+                        device=xg.device)
+    if emit_all:
+        emit_b0 = torch.zeros((steps, P), dtype=torch.float32,
+                              device=xg.device)
     for t in range(steps):
         base = t * U_ROWS
-        Y, _, _, _, _, k = ref_step(
+        Y, _, w, cdf, _, k = ref_step(
             stats, theta, uin[base:base + 3, :P], uin[base + 8:base + 11, :P],
             uin[base + 16, 0], depth=depth, n_data=n_data, temper=temper,
             step_size=step_size, mode=mode, N=N, trans_sigma=trans_sigma,
             trans_norm=trans_norm,
         )
-        theta = Y[:, k].contiguous()
-        trace[:3, t] = theta
-        trace[3, t] = k.float()
+        if emit_all:
+            ks, sel, J = ref_emit(Y, w, cdf, uemit[t])
+            theta = sel[:, 0].contiguous()
+            trace[:3, t] = theta
+            trace[3, t] = J
+            trace[4:7, t] = sel[:, -1]
+            trace[7, t] = ks[0].float()
+            emit_b0[t] = sel[0]
+        else:
+            theta = Y[:, k].contiguous()
+            trace[:3, t] = theta
+            trace[3, t] = k.float()
+    if emit_all:
+        return trace, theta, emit_b0
     return trace, theta
+
+
+def _replay_steps(stats, prev, uin, P, model):
+    """:func:`ref_step` for T supersteps at once: superstep t from state
+    ``prev[t]`` (T, 3) on its 17 rows of ``uin`` (T*17, L).  Returns
+    ``(Y (T, 3, P), cdf (T, P), u (T,), k (T,))``."""
+    u = uin.reshape(-1, U_ROWS, uin.shape[-1])
+    step = torch.func.vmap(
+        lambda th, u1, u2, us: ref_step(stats, th, u1, u2, us, **model))
+    Y, _, _, cdf, uu, k = step(prev, u[:, 0:3, :P], u[:, 8:11, :P],
+                               u[:, 16, 0])
+    return Y, cdf, uu, k
+
+
+def _misses(t_miss, k, kk, uu, cdf):
+    """``(step, plain node, kernel node, u, cdf[k-1], cdf[k])`` of each
+    superstep in ``t_miss`` (CPU tensors)."""
+    out = []
+    for t in t_miss.tolist():
+        kt = int(k[t])
+        lo = cdf[t, kt - 1].item() if kt > 0 else 0.0
+        out.append((t, kt, int(kk[t]), uu[t].item(), lo, cdf[t, kt].item()))
+    return out
 
 
 def replay_against_plain(xg, yg, theta0, uin, *, P, **model):
@@ -263,25 +355,111 @@ def replay_against_plain(xg, yg, theta0, uin, *, P, **model):
                                 **model)
         parts.append(tr)
     ktrace = torch.cat(parts, dim=1).cpu()
+    prev = torch.cat([theta0.cpu()[None], ktrace[:3, :-1].T])
+    Y, cdf, uu, k = _replay_steps(suff_stats(xg, yg),
+                                  prev.to(theta0.device),
+                                  uin.reshape(-1, uin.shape[-1]), P, model)
+    Y, cdf, uu, k = Y.cpu(), cdf.cpu(), uu.cpu(), k.cpu()
+    kk = ktrace[3].long()
+    same = k == kk
+    T = steps * chunks
+    err = (Y[torch.arange(T), :, k] - ktrace[:3].T).abs().amax(1)
+    max_err = float(err[same].max()) if bool(same.any()) else 0.0
+    misses = _misses(torch.nonzero(~same).flatten(), k, kk, uu, cdf)
+    return ktrace, theta, int(same.sum()), max_err, misses
+
+
+def replay_roots_against_plain(xg, yg, theta0, uin, roots, *, P, **model):
+    """Hold a chain's states, as a runner returns them, against the plain
+    version superstep by superstep.
+
+    ``roots`` (T, 3) are the states a chain reached from ``theta0`` (3,)
+    on the uniforms ``uin`` (T*17, L); for a farm, one chain of
+    :func:`pmpx_torch.parallel.chains.make_chain_farm_fused`'s runner fed
+    ``uin``.  Each superstep is replayed with :func:`ref_step` from the
+    chain's own previous state; the chain's selection is the node whose
+    plain position is nearest its state.  Returns ``(agree, max_err,
+    misses)`` as :func:`replay_against_plain` counts them.
+    """
+    roots = roots.cpu()
+    prev = torch.cat([theta0.cpu()[None], roots[:-1]])
+    Y, cdf, uu, k = _replay_steps(suff_stats(xg, yg), prev.to(xg.device),
+                                  uin, P, model)
+    Y, cdf, uu, k = Y.cpu(), cdf.cpu(), uu.cpu(), k.cpu()
+    dist = (Y - roots[:, :, None]).abs().amax(1)  # (T, P)
+    kk = dist.argmin(1)
+    same = k == kk
+    err = dist[torch.arange(len(k)), k]
+    max_err = float(err[same].max()) if bool(same.any()) else 0.0
+    misses = _misses(torch.nonzero(~same).flatten(), k, kk, uu, cdf)
+    return int(same.sum()), max_err, misses
+
+
+def replay_emit_against_plain(xg, yg, theta0, uin, uemit, *, P, **model):
+    """Hold :func:`chain_chunk` with ``emit="all"`` against its plain
+    version superstep by superstep, as :func:`replay_against_plain` does
+    for ``emit="root"``.
+
+    ``uin`` (chunks, steps*17, L) and ``uemit`` (chunks, steps, L): one
+    launch per chunk, each from the state the previous one left; then
+    every superstep is replayed with :func:`ref_step` and :func:`ref_emit`
+    from the kernel's own previous state.  The kernel's draw of slot j is
+    the node whose plain position has the nearest b0 to the kernel's
+    emitted one.  Returns a dict: ``trace`` (8, T) and ``emit_b0`` (T, P)
+    of the kernel on the CPU, ``theta``; ``slots`` and ``slots_agree``
+    (slot draws in all, and equal); ``state_err``, the max |error| of the
+    state (rows 0-2) and of the last slot's (rows 4-6) where slot 0's and
+    slot P-1's draws agree; ``jump_err``, the max of |J_kernel - J_plain|
+    / max(1, J_plain) over the supersteps where every slot agrees;
+    ``b0_root_equal``, whether emitted slot 0 is bit-equal to the state's
+    b0; ``misses``, (step, slot, plain node, kernel node) of each slot
+    that disagrees.
+    """
+    chunks = uin.shape[0]
+    steps = uin.shape[1] // U_ROWS
+    theta = theta0
+    parts, b0s = [], []
+    for c in range(chunks):
+        tr, theta, eb = chain_chunk(xg, yg, theta, steps=steps, P=P,
+                                    uin=uin[c], uemit=uemit[c], emit="all",
+                                    **model)
+        parts.append(tr)
+        b0s.append(eb)
+    ktrace = torch.cat(parts, dim=1).cpu()
+    kb0 = torch.cat(b0s, dim=0).cpu()
     stats = suff_stats(xg, yg)
     prev = theta0
-    agree, max_err, misses = 0, 0.0, []
+    out = dict(trace=ktrace, emit_b0=kb0, theta=theta, slots=0,
+               slots_agree=0, state_err=0.0, jump_err=0.0, misses=[],
+               b0_root_equal=bool(torch.equal(kb0[:, 0], ktrace[0])))
     for t in range(steps * chunks):
         c, tt = divmod(t, steps)
         b = tt * U_ROWS
-        Y, _, _, cdf, u, k = ref_step(
+        Y, _, w, cdf, _, _ = ref_step(
             stats, prev, uin[c, b:b + 3, :P], uin[c, b + 8:b + 11, :P],
             uin[c, b + 16, 0], **model)
-        k, kk = int(k), int(ktrace[3, t])
-        if k == kk:
-            agree += 1
-            err = (Y[:, k].cpu() - ktrace[:3, t]).abs().max().item()
-            max_err = max(max_err, err)
-        else:
-            lo = cdf[k - 1].item() if k > 0 else 0.0
-            misses.append((t, k, kk, u.item(), lo, cdf[k].item()))
+        ks, sel, J = ref_emit(Y, w, cdf, uemit[c, tt])
+        Yc, ks = Y.cpu(), ks.cpu()
+        # the kernel's draws: the node of nearest b0
+        kk = (Yc[0][None, :] - kb0[t][:, None]).abs().argmin(1)
+        same = kk == ks
+        out["slots"] += P
+        out["slots_agree"] += int(same.sum())
+        for j in torch.nonzero(~same).flatten().tolist():
+            out["misses"].append((t, j, int(ks[j]), int(kk[j])))
+        sel = sel.cpu()
+        if same[0]:
+            err = (sel[:, 0] - ktrace[:3, t]).abs().max().item()
+            out["state_err"] = max(out["state_err"], err)
+        if same[-1]:
+            err = (sel[:, -1] - ktrace[4:7, t]).abs().max().item()
+            out["state_err"] = max(out["state_err"], err)
+        if bool(same.all()):
+            Jp = float(J)
+            err = abs(ktrace[3, t].item() - Jp) / max(1.0, Jp)
+            out["jump_err"] = max(out["jump_err"], err)
         prev = ktrace[:3, t].to(theta0.device).contiguous()
-    return ktrace, theta, agree, max_err, misses
+    return out
 
 
 def _check_mode(mode, P, depth, N):
@@ -301,7 +479,7 @@ def _check_mode(mode, P, depth, N):
         )
 
 
-def _check(xg, yg, theta, steps, P, seed, uin):
+def _check(xg, yg, theta, steps, P, seed, uin, emit, uemit):
     dev = xg.device
     for name, t in (("xg", xg), ("yg", yg), ("theta", theta)):
         if t.dtype != torch.float32:
@@ -310,26 +488,45 @@ def _check(xg, yg, theta, steps, P, seed, uin):
             raise ValueError(f"{name} must be contiguous")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, xg on {dev}")
-    if yg.shape != xg.shape or theta.shape != (3,):
+    if yg.shape != xg.shape or theta.dim() not in (1, 2) \
+            or theta.shape[-1] != 3 or theta.shape[0] < 1:
         raise ValueError(
-            f"want matching grids and theta (3,), got {tuple(xg.shape)}, "
-            f"{tuple(yg.shape)}, {tuple(theta.shape)}"
+            f"want matching grids and theta (3,) or (C, 3), got "
+            f"{tuple(xg.shape)}, {tuple(yg.shape)}, {tuple(theta.shape)}"
         )
+    farm = theta.dim() == 2
+    C = theta.shape[0] if farm else 1
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
+    if emit not in ("root", "all"):
+        raise ValueError(f"unknown emit {emit!r}")
     L = lane_extent(P)
+    if emit == "all":
+        if farm:
+            raise ValueError("emit='all' runs one chain (theta (3,))")
+        if L > EMIT_MAX_L:
+            raise ValueError(f"emit='all' takes P <= {EMIT_MAX_L}, got {P}")
     if uin is not None:
+        want = ((C,) if farm else ()) + (steps * U_ROWS, L)
         if uin.dtype != torch.float32 or not uin.is_contiguous():
             raise ValueError("uin must be contiguous float32")
-        if uin.device != dev or uin.shape != (steps * U_ROWS, L):
+        if uin.device != dev or tuple(uin.shape) != want:
             raise ValueError(
-                f"uin must be ({steps * U_ROWS}, {L}) on {dev}, got "
-                f"{tuple(uin.shape)} on {uin.device}"
+                f"uin must be {want} on {dev}, got {tuple(uin.shape)} on "
+                f"{uin.device}"
             )
+        if emit == "all" and (
+                uemit is None or uemit.dtype != torch.float32
+                or not uemit.is_contiguous() or uemit.device != dev
+                or tuple(uemit.shape) != (steps, L)):
+            raise ValueError(f"emit='all' with uin needs uemit: a contiguous "
+                             f"float32 ({steps}, {L}) on {dev}")
     elif (seed is None or seed.dtype != torch.int32 or seed.device != dev
-          or seed.numel() != 1):
-        raise ValueError("rng='kernel' needs seed: a (1,) int32 on xg's "
-                         "device")
+          or seed.numel() != C or not seed.is_contiguous()):
+        raise ValueError(f"rng='kernel' needs seed: {C} contiguous int32 on "
+                         f"xg's device")
+    if uin is None and uemit is not None:
+        raise ValueError("uemit goes with uin (rng='input')")
 
 
 def chain_chunk(
@@ -349,53 +546,78 @@ def chain_chunk(
     trans_norm: float = 1.0,
     seed: Optional[torch.Tensor] = None,
     uin: Optional[torch.Tensor] = None,
+    emit: str = "root",
+    uemit: Optional[torch.Tensor] = None,
 ):
-    """``steps`` supersteps of one chain from ``theta`` (3,) in ``mode``
-    (``binary``, ``mp`` or ``general``; P = (N + 1)**depth).
+    """``steps`` supersteps from ``theta`` in ``mode`` (``binary``, ``mp``
+    or ``general``; P = (N + 1)**depth): of one chain for theta (3,), or of
+    a farm of C independent chains, one block each, for theta (C, 3).
 
-    xg, yg : zero-padded data grids (any shape; summed flat).
+    xg, yg : zero-padded data grids (any shape; summed flat), shared by
+        the chains of a farm.
     trans_sigma, trans_norm : the MTM transition density of mp and general
         (ignored by binary, whose symmetric K cancels).
-    seed : (1,) int32, the Philox key of ``rng="kernel"``; or
-    uin : (steps*17, L) injected uniforms in (0, 1].
-    Returns ``(trace (4, steps), theta_out (3,))``: trace rows are
-    (beta0, beta1, sigma, selected node) after each superstep.
+    seed : (1,) or (C,) int32, the Philox keys of ``rng="kernel"``; or
+    uin : (steps*17, L), or (C, steps*17, L), injected uniforms in (0, 1].
+    emit : ``"root"``, or ``"all"`` (one chain, P <= 512) with
+    uemit : (steps, L) slot uniforms when ``uin`` is given.
+
+    ``emit="root"`` returns ``(trace, theta_out)``: trace (4, steps), or
+    (C, 4, steps) for a farm, rows (beta0, beta1, sigma, selected node)
+    after each superstep; theta_out (3,) or (C, 3).  ``emit="all"`` returns
+    ``(trace (8, steps), theta_out (3,), emit_b0 (steps, P))`` as
+    :func:`fused_chain_ref` lays them out.  Chain c of a farm is
+    bit-identical to a one-chain call with its seed (or uniforms) and
+    theta.
     """
     _check_mode(mode, P, depth, N)
-    _check(xg, yg, theta, steps, P, seed, uin)
+    _check(xg, yg, theta, steps, P, seed, uin, emit, uemit)
     dev = xg.device
+    farm = theta.dim() == 2
+    emit_all = emit == "all"
     model = dict(depth=depth, n_data=n_data, temper=temper,
                  step_size=step_size, mode=mode, N=N,
                  trans_sigma=trans_sigma, trans_norm=trans_norm)
     if dev.type == "cpu":
         if uin is None:
             raise ValueError("on the CPU the chain needs injected uniforms")
-        return fused_chain_ref(xg, yg, theta, uin, P=P, **model)
+        if farm:
+            runs = [fused_chain_ref(xg, yg, theta[c], uin[c], P=P, **model)
+                    for c in range(theta.shape[0])]
+            return (torch.stack([r[0] for r in runs]),
+                    torch.stack([r[1] for r in runs]))
+        return fused_chain_ref(xg, yg, theta, uin, P=P, uemit=uemit, **model)
     if dev.type != "cuda":
         raise ValueError(f"chain_chunk runs on cuda or cpu, not {dev}")
     lib = _build.load().lib
-    trace = torch.empty((4, steps), device=dev)
-    theta_out = torch.empty((3,), device=dev)
+    C = theta.shape[0] if farm else 1
+    rows = 8 if emit_all else 4
+    trace = torch.empty(((C,) if farm else ()) + (rows, steps), device=dev)
+    theta_out = torch.empty_like(theta)
+    emit_b0 = torch.empty((steps, P), device=dev) if emit_all else None
+    base = 2 if mode == "binary" else N + 1
     denom = float(2.0 * trans_sigma * trans_sigma * trans_norm)
-    common = (
-        None if seed is None else seed.data_ptr(),
-        theta.data_ptr(), xg.data_ptr(), yg.data_ptr(), xg.numel(),
-        None if uin is None else uin.data_ptr(),
-        trace.data_ptr(), theta_out.data_ptr(), steps, P, lane_extent(P),
-    )
-    lik = (float(n_data), float(temper), float(step_size))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if mode == "binary":
-            err = lib.pmpx_fused_chain_binary(*common, depth, *lik, stream)
-        elif mode == "mp":
-            err = lib.pmpx_fused_chain_mp(*common, *lik, denom, stream)
-        else:
-            err = lib.pmpx_fused_chain_general(*common, N + 1, depth, *lik,
-                                               denom, stream)
-    name = KERNEL_NAME[mode]
+        err = lib.pmpx_fused_chain(
+            _MODE_ID[mode], int(emit_all), C, ptr(seed), theta.data_ptr(),
+            xg.data_ptr(), yg.data_ptr(), xg.numel(), ptr(uin), ptr(uemit),
+            trace.data_ptr(), theta_out.data_ptr(), ptr(emit_b0), steps, P,
+            lane_extent(P), base, depth, float(n_data), float(temper),
+            float(step_size), denom, stream,
+        )
+    if farm:
+        name = FARM_KERNEL
+    else:
+        name = (KERNEL_NAME_ALL if emit_all else KERNEL_NAME)[mode]
     _build.check(err, name)
     launches[name] += 1
+    if emit_all:
+        return trace, theta_out, emit_b0
     return trace, theta_out
 
 
@@ -412,16 +634,23 @@ def chain_consts(target, cfg) -> dict:
 
 def make_fused_chain(target, cfg, *, chunk: int = 512, rng: str = "kernel",
                      emit: str = "root"):
-    """Build ``run(generator, theta0, num_steps, *, uin=None) -> trace
-    (num_steps, 3)``, the chain state after each superstep.
+    """Build ``run(generator, theta0, num_steps, *, uin=None, uemit=None)``.
 
     ``target`` is a :class:`pmpx_torch.targets.BayesLinReg` and ``cfg`` a
     PMPConfig with ``supports(cfg, emit)``; its mode is
     :func:`chain_mode`.  The chain runs ``ceil(num_steps / chunk)``
     launches of ``chunk`` supersteps; each launch starts from the state
     the previous one left on the device, so the host never waits between
-    launches.  ``uin`` (n_chunks, chunk*17, L) replaces the uniforms of
+    launches.  ``uin`` (n_chunks, chunk*17, L) and, for ``emit="all"``,
+    ``uemit`` (n_chunks, chunk, L) replace the uniforms of
     ``rng="input"``.
+
+    ``emit="root"``: ``run`` returns the chain state after each superstep,
+    (num_steps, 3).  ``emit="all"``: ``run`` returns ``pmpx``'s dict,
+    ``root`` (num_steps, 3) the chain path (slot 0's draw), ``jumps``
+    (num_steps,) the within-step squared-jump sums, ``last`` (num_steps,
+    3) the last slot's draw, and ``emit_b0`` (P, num_steps) every slot's
+    b0.
     """
     if not supports(cfg, emit):
         raise ValueError(f"fused chain does not support {cfg} emit={emit}")
@@ -431,12 +660,15 @@ def make_fused_chain(target, cfg, *, chunk: int = 512, rng: str = "kernel",
     L = lane_extent(consts["P"])
     xg, yg = target.x2d, target.y2d
     dev = xg.device
+    emit_all = emit == "all"
 
     def run(generator: torch.Generator, theta0: torch.Tensor,
-            num_steps: int, *, uin: Optional[torch.Tensor] = None):
+            num_steps: int, *, uin: Optional[torch.Tensor] = None,
+            uemit: Optional[torch.Tensor] = None):
         n_chunks = -(-num_steps // chunk)
-        if uin is not None and rng != "input":
-            raise ValueError("uin replaces the uniforms of rng='input'")
+        if (uin is not None or uemit is not None) and rng != "input":
+            raise ValueError("uin and uemit replace the uniforms of "
+                             "rng='input'")
         kernel_rng = rng == "kernel" and dev.type == "cuda"
         if kernel_rng:
             seeds = torch.randint(
@@ -444,19 +676,33 @@ def make_fused_chain(target, cfg, *, chunk: int = 512, rng: str = "kernel",
                 device=dev, dtype=torch.int32,
             )
         theta = theta0.to(device=dev, dtype=torch.float32).contiguous()
-        traces = []
+        parts = []
         for c in range(n_chunks):
             if kernel_rng:
                 kw = dict(seed=seeds[c])
             elif uin is not None:
                 kw = dict(uin=uin[c])
+                if emit_all:
+                    kw["uemit"] = uemit[c]
             else:
                 kw = dict(uin=1.0 - torch.rand(
-                    (chunk * U_ROWS, L), generator=generator, device=dev
-                ))
-            tr, theta = chain_chunk(xg, yg, theta, steps=chunk, **kw,
-                                    **consts)
-            traces.append(tr[:3])
-        return torch.cat(traces, dim=1).T[:num_steps]
+                    (chunk * U_ROWS, L), generator=generator, device=dev))
+                if emit_all:
+                    kw["uemit"] = 1.0 - torch.rand(
+                        (chunk, L), generator=generator, device=dev)
+            out = chain_chunk(xg, yg, theta, steps=chunk, emit=emit, **kw,
+                              **consts)
+            theta = out[1]
+            parts.append(out[0] if not emit_all else (out[0], out[2]))
+        if not emit_all:
+            return torch.cat([tr[:3] for tr in parts], dim=1).T[:num_steps]
+        meta = torch.cat([m for m, _ in parts], dim=1)[:, :num_steps]
+        return {
+            "root": meta[:3].T,
+            "jumps": meta[3],
+            "last": meta[4:7].T,
+            "emit_b0": torch.cat([b for _, b in parts], dim=0)[
+                :num_steps].T,
+        }
 
     return run

@@ -6,7 +6,8 @@ Three exact evaluation strategies:
 
 * ``"sweep"`` — the O(P*n) data sweep: the CUDA kernel of
   ``pmpx_torch.kernels.linreg`` on the card, its plain version on the CPU
-  (``pmpx``'s ``"pallas"``/``"xla"``);
+  (``pmpx``'s ``"pallas"``/``"xla"``, which the port takes as names of
+  ``"sweep"``);
 * ``"fused"`` — the five sufficient statistics recomputed in f32 from the
   padded data on every call, then O(P);
 * ``"suffstats"`` — the statistics computed once, in float64, at
@@ -83,6 +84,8 @@ class BayesLinReg:
     ):
         if method == "auto":
             method = "fused"
+        if method in ("pallas", "xla"):
+            method = "sweep"  # pmpx's names of its two sweeps
         if method not in ("sweep", "fused", "suffstats"):
             raise ValueError(f"unknown linreg method {method!r}")
         self.method = method

@@ -131,10 +131,11 @@ def test_common_helpers():
 
 
 def test_cli_list_and_run(tmp_path, capsys):
-    assert EXPERIMENTS == ["cores_sweep", "time_analysis"]
+    assert EXPERIMENTS == ["cores_sweep", "ess_msjd", "time_analysis"]
     assert cli.main(["list"]) == 0
     listed = capsys.readouterr().out.split()
     assert "time_analysis" in listed and "cores_sweep" in listed
+    assert "ess_msjd" in listed
     assert cli.main([
         "run", "time_analysis", "--method", "fused_chain",
         "--include_conv_pmp", "true", "--data_sizes", "500", "--Ps", "4",

@@ -95,14 +95,11 @@ SUPPORT_GRID = [
     "N,depth,stab", SUPPORT_GRID,
     ids=[f"N{N}-D{d}-{s}" for N, d, s in SUPPORT_GRID])
 def test_supports_equals_pmpx(N, depth, stab, emit):
-    """emit="root": exactly pmpx's answer (its power-of-two-base rule and
-    its 8 MiB group-matrix cap included).  emit="all" is not ported."""
+    """Exactly pmpx's answer (its power-of-two-base rule, its 8 MiB
+    group-matrix cap and emit="all"'s 512-lane cap included)."""
     jcfg = JCfg(N=N, depth=depth, step_size=0.1, stabilizer=stab)
     tcfg = TCfg(N=N, depth=depth, step_size=0.1, stabilizer=stab)
-    if emit == "root":
-        assert tfc.supports(tcfg, emit) is jfc.supports(jcfg, emit)
-    else:
-        assert tfc.supports(tcfg, emit) is False
+    assert tfc.supports(tcfg, emit) is jfc.supports(jcfg, emit)
 
 
 def test_supports_covers_the_time_grid():

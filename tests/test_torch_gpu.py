@@ -18,6 +18,7 @@ from pmpx_torch.kernels import launches  # noqa: E402
 from pmpx_torch.kernels.linreg import (  # noqa: E402
     batched_rss, batched_rss_ref, pad_proposals,
 )
+from pmpx_torch.samplers.pmp import PMPConfig  # noqa: E402
 from pmpx_torch.targets.linreg import (  # noqa: E402
     BayesLinReg, make_synthetic_linreg, pad_to_grid,
 )
@@ -147,3 +148,133 @@ def test_fused_chain_new_modes_kernel_rng_is_seeded(cuda, N, depth):
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
     assert bool(torch.isfinite(a).all())
+
+
+# emit="all": binary P = 8 and 512, flat MP P = 8 and 512 (N = P - 1),
+# general (3, 2) and (7, 3); all within the 512-lane cap
+EMIT_MODES = [(1, 3), (1, 9), (7, 1), (511, 1), (3, 2), (7, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,depth", EMIT_MODES)
+def test_fused_chain_emit_all_matches_plain(cuda, N, depth):
+    """The emit="all" kernels against their plain versions with injected
+    uniforms, step by step from the kernel's own state
+    (fc.replay_emit_against_plain, as chip_smoke.py's phase 3d): >= 99%
+    of the slot draws equal; the state and the last slot's within 1e-4
+    where their draws agree; the jump sum within 1e-4 of max(1, J) where
+    every slot agrees; slot 0's b0 bit-equal to the state's."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(N * 10 + depth)
+    x, y = make_synthetic_linreg(g, 20_000)
+    t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    kw = fc.chain_consts(t, PMPConfig(N=N, depth=depth, step_size=0.05,
+                                      trans_sigma=0.8))
+    steps, chunks = 30, 2
+    L = fc.lane_extent(kw["P"])
+    uin = 1.0 - torch.rand((chunks, steps * fc.U_ROWS, L), generator=g,
+                           device=cuda)
+    uemit = 1.0 - torch.rand((chunks, steps, L), generator=g, device=cuda)
+    th = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    name = fc.KERNEL_NAME_ALL[kw["mode"]]
+    before = launches[name]
+    out = fc.replay_emit_against_plain(t.x2d, t.y2d, th, uin, uemit, **kw)
+    assert launches[name] == before + chunks
+    assert out["slots_agree"] >= 0.99 * out["slots"]
+    assert out["state_err"] <= 1e-4
+    assert out["jump_err"] <= 1e-4
+    assert out["b0_root_equal"]
+    assert torch.equal(out["trace"][:3, -1], out["theta"].cpu())
+    assert len(set(out["trace"][0].tolist())) > 1  # the chain moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,depth", [(1, 9), (511, 1)])
+def test_fused_chain_emit_all_kernel_rng(cuda, N, depth):
+    """emit="all" with the in-kernel Philox: seeded, finite, and each
+    slot's stream moves."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    x, y = make_synthetic_linreg(g, 5000)
+    t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    cfg = PMPConfig(N=N, depth=depth, step_size=0.05,
+                           selection="all_first")
+    run = fc.make_fused_chain(t, cfg, chunk=50, emit="all")
+    th = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    outs = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(9)
+        outs.append(run(gen, th, 120))
+    for k in ("root", "jumps", "last", "emit_b0"):
+        assert torch.equal(outs[0][k], outs[1][k])
+        assert bool(torch.isfinite(outs[0][k]).all())
+    eb = outs[0]["emit_b0"]
+    assert eb.shape == (cfg.P, 120)
+    assert torch.equal(eb[0], outs[0]["root"][:, 0])
+    assert bool((outs[0]["jumps"] >= 0).all())
+    assert (eb[:, 1:] != eb[:, :-1]).any(dim=1).float().mean() > 0.9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,depth", [(1, 3), (1, 9), (511, 1), (7, 3)])
+def test_chain_farm_is_bit_identical_to_single_chains(cuda, N, depth):
+    """A farm of C = 4 chains in one launch against 4 single-chain
+    launches on the same seeds and states: bit-equal."""
+    from pmpx_torch.parallel import chains as tchains
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    x, y = make_synthetic_linreg(g, 20_000)
+    t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    cfg = PMPConfig(N=N, depth=depth, step_size=0.05,
+                           selection="all_first")
+    C, steps = 4, 150
+    theta0 = torch.tensor([[0.0, 0.0, 1.0], [0.1, 0.2, 0.9],
+                           [-0.5, 1.0, 1.2], [-1.0, 2.0, 0.5]], device=cuda)
+    farm = tchains.make_chain_farm_fused(t, cfg, steps, chunk=100)
+    before = launches["fused_chain_farm"]
+    got = farm(tchains.chain_generators(1, C, cuda), theta0)
+    assert launches["fused_chain_farm"] == before + 2
+    single = fc.make_fused_chain(t, cfg, chunk=100)
+    for c, gen in enumerate(tchains.chain_generators(1, C, cuda)):
+        assert torch.equal(got[c], single(gen, theta0[c], steps))
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,depth", [(1, 3), (1, 9), (511, 1)])
+def test_chain_farm_injected_uniforms_match_plain(cuda, N, depth):
+    """The farm on injected uniforms (each block reads its chain's rows
+    of uin): chain c is bit-equal to a single-chain launch on uin[:, c],
+    and held step by step against the plain version
+    (fc.replay_roots_against_plain, as chip_smoke.py's phase 3e): >= 99%
+    of the selections equal, the state within 1e-4 where they are."""
+    from pmpx_torch.parallel import chains as tchains
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    x, y = make_synthetic_linreg(g, 20_000)
+    t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    cfg = PMPConfig(N=N, depth=depth, step_size=0.05, selection="all_first")
+    kw = fc.chain_consts(t, cfg)
+    C, steps, chunk = 4, 150, 100
+    L = fc.lane_extent(kw["P"])
+    uin = 1.0 - torch.rand((2, C, chunk * fc.U_ROWS, L), generator=g,
+                           device=cuda)
+    theta0 = torch.tensor([[0.0, 0.0, 1.0], [0.1, 0.2, 0.9],
+                           [-0.5, 1.0, 1.2], [-1.0, 2.0, 0.5]], device=cuda)
+    farm = tchains.make_chain_farm_fused(t, cfg, steps, chunk=chunk,
+                                         rng="input")
+    before = launches["fused_chain_farm"]
+    got = farm(tchains.chain_generators(1, C, cuda), theta0, uin=uin)
+    assert launches["fused_chain_farm"] == before + 2
+    single = fc.make_fused_chain(t, cfg, chunk=chunk, rng="input")
+    for c in range(C):
+        u_c = uin[:, c].contiguous()
+        assert torch.equal(got[c], single(None, theta0[c], steps, uin=u_c))
+        agree, err, _ = fc.replay_roots_against_plain(
+            t.x2d, t.y2d, theta0[c], u_c.reshape(-1, L)[:steps * fc.U_ROWS],
+            got[c], **kw)
+        assert agree >= 0.99 * steps
+        assert err <= 1e-4

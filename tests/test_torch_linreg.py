@@ -182,5 +182,20 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlin.BayesLinReg(np.zeros(4), np.zeros(4))
     with pytest.raises(ValueError):
-        tlin.BayesLinReg(np.zeros(4), np.zeros(4), method="pallas",
+        tlin.BayesLinReg(np.zeros(4), np.zeros(4), method="cuda",
                          device="cpu")
+
+
+@pytest.mark.parametrize("name", ["pallas", "xla"])
+def test_pmpx_sweep_names_give_the_sweep(name):
+    """pmpx's names of its two sweeps are names of the port's "sweep":
+    the same method and bit-equal log-densities."""
+    x, y = _data(3000, 2)
+    sweep = linreg_from_numpy(x, y, temper=0.05, method="sweep",
+                              device="cpu")
+    alias = linreg_from_numpy(x, y, temper=0.05, method=name, device="cpu")
+    assert alias.method == "sweep"
+    Theta = torch.tensor((np.random.default_rng(7).normal(size=(64, 3))
+                          * 0.3 + [-1.0, 2.0, 0.5]).astype(np.float32))
+    assert torch.equal(alias.log_prob_batch(Theta),
+                       sweep.log_prob_batch(Theta))

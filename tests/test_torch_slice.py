@@ -129,7 +129,8 @@ def test_pmp_config_from_jax_and_dict():
         (dict(N=1, depth=10), "root", True),
         (dict(N=1, depth=3), "root", True),
         (dict(N=1, depth=11), "root", False),
-        (dict(N=1, depth=9), "all", False),
+        (dict(N=1, depth=9), "all", True),  # emit="all", P = 512
+        (dict(N=1, depth=10), "all", False),  # past emit="all"'s cap
         (dict(N=7, depth=1), "root", True),  # flat MP
         (dict(N=3, depth=2), "root", True),  # general (N, depth)
         (dict(N=7, depth=3), "root", True),  # conv_pmp's 512-node cell
