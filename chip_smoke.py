@@ -20,14 +20,17 @@ Phases, each printing its wall time:
    target; 3d. the same for ``emit="all"`` in its three modes, slot by
    slot; 3e. the chain farm (C chains in one launch) bit-equal to C
    single-chain launches, and the ESS protocol's farm cell, chain by
-   chain, against the plain version;
+   chain, against the plain version; 3f. ``lstm_fused`` against its plain
+   version at the MNIST-LSTM protocol's shapes in f32 and bf16, and a
+   replay of PMP supersteps at full batch, kernel path against plain path;
 4. the sweep main path of the benchmark cell (``pmpx_torch.bench``), with
    its launch count and a posterior check;
 5. the fused main path, likewise;
 6. each kernel's time beside its plain version's and its bound (the
-   launches of each from the time grid of phase 7 and the ESS protocol of
-   phase 9), and the farm's supersteps per second against its chain
-   count;
+   launches of each from the time grid of phase 7, the ESS protocol of
+   phase 9 and the MNIST path of phase 10), ``lstm_fused``'s beside P
+   calls of cuDNN's LSTM, and the farm's supersteps per second against
+   its chain count;
 7. the time grid of the reference (``pmpx_torch.experiments.
    time_analysis``) at full width on both paths, with a posterior check of
    a flat-MP and a general fused chain;
@@ -36,7 +39,12 @@ Phases, each printing its wall time:
 9. the ESS/MSJD protocol (``pmpx_torch.experiments.ess_msjd``) at the
    paper's data size on the fused path, every slot's draws and the root
    path, one farm of chains, and the superstep path's emit-all cells, with
-   the cuts listed in its JSON line.
+   the cuts listed in its JSON line;
+10. the MNIST posterior (``pmpx_torch.experiments.mnist``) at the paper's
+   scale: LSTM PMP, MP and MH through the ``lstm_fused`` kernel and FC PMP
+   through the generic path, ``num_steps`` cut (the one reduction), with
+   the kernel-path density at the warm start held to the generic path's,
+   and a profiler trace of a few LSTM and FC PMP supersteps.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -53,12 +61,15 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet).
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 RSS_TOL = 1e-5  # relative to max|rss|: f32 sums of ~1e5 terms, two orders
@@ -117,6 +128,31 @@ ESS_CHAINS = 8
 ESS_SWEEP_PS = (8, 512)
 ESS_SWEEP_STEPS = 1000
 ESS_SWEEP_BURN = 200
+# phase 3f: (P, split) of lstm_fused at the MNIST protocol's shapes: PMP and
+# MP (P = 8) and MH (P = 2, current and proposal) over the 60,000 training
+# images, log_prob (P = 1), and the 10,000-image test split (B not a
+# multiple of the kernel's 64-row tile, as 60,000 is not either).  Gates:
+# f32 max|dh| <= 2e-5 and log-densities within rtol 2e-5 (pmpx's
+# tests/test_lstm_kernel.py:43); bf16 log-densities within rtol 0.02 /
+# atol 0.05 (:89).  The replay: LSTM_REPLAY PMP supersteps (the protocol's
+# N = 7 tree, single, zscore, alpha 1e-4) at full batch on injected noise,
+# CHAIN_AGREE of the selections equal and the states bit-equal where they
+# are.
+LSTM_SHAPES = ((8, "train"), (2, "train"), (1, "train"), (8, "test"))
+LSTM_H_TOL = 2e-5
+LSTM_LP_RTOL = 2e-5
+LSTM_BF16_RTOL, LSTM_BF16_ATOL = 0.02, 0.05
+LSTM_REPLAY = 50
+# phase 6: cuDNN's f32 LSTM (TF32 off) on the kernel's weights, mapped to
+# torch's layout: h_T within this of the kernel's (another summation order
+# over 28 steps)
+LSTM_LIB_TOL = 1e-4
+# phase 10: the MNIST path at scale="paper" (60,000 / 10,000 images,
+# pretrain 50, the paper's temper); the one cut is num_steps (the paper's
+# 1,000,000 for the LSTM, 500,000 for FC)
+MNIST_CELLS = (("LSTM", "pmp", 300), ("LSTM", "mp", 300), ("LSTM", "mh", 600),
+               ("FC", "pmp", 600))
+MNIST_PROFILE = 5  # supersteps in each profiler trace of phase 10
 
 
 class Phase:
@@ -221,23 +257,24 @@ def emit_ops(P: int, steps: int) -> float:
 
 def lstm_fused_bound(P: int = 8, B: int = 60_000, T: int = 28, F: int = 28,
                      H: int = 64) -> dict:
-    """The bound of pmpx/kernels/lstm_fused.py (not ported yet) at the
+    """The bound of lstm_fused (pmpx/kernels/lstm_fused.py) at the
     MNIST-LSTM protocol's shapes: P = 8 parameter sets (N = 7, a binary
     tree of 8 states), the full batch B = 60,000, T = F = 28, H = 64
     (lstm_final_hidden, lstm_fused.py:83-115).  8 H (F + H) T flops per
     parameter set and example (the two gate matmuls); bytes: x (T, B, F)
     read once, the P weight sets read once, (P, B, H) written, all f32.
-    Against f32 on the CUDA cores and against bf16 inputs on the tensor
-    cores (989 TFLOP/s)."""
+    Against f32 on the CUDA cores and against bf16 inputs (x, Wx, Wh; the
+    bias and h_T stay f32) on the tensor cores (989 TFLOP/s)."""
     flops = 8.0 * H * (F + H) * T * P * B
-    nbytes = 4.0 * (T * B * F + P * (F * 4 * H + H * 4 * H + 4 * H)
-                    + P * B * H)
+    wide = T * B * F + P * (F * 4 * H + H * 4 * H)
+    narrow = P * 4 * H + P * B * H
+    nbytes = 4.0 * (wide + narrow)
     b_ms, b_by = bound(flops, nbytes)
-    return {"name": "lstm_fused", "replaces": "pmpx/kernels/lstm_fused.py:48",
-            "P": P, "B": B, "flops": flops, "bytes": nbytes,
+    return {"P": P, "B": B, "flops": flops, "bytes": nbytes,
             "bound_ms_f32": b_ms, "bound_by_f32": b_by,
-            "bound_ms_bf16_tensor": max(flops / 989e12,
-                                        nbytes / 2 / PEAK_BYTES_PER_S) * 1e3}
+            "bound_ms_bf16_tensor": max(
+                flops / PEAK_BF16_FLOPS,
+                (2.0 * wide + 4.0 * narrow) / PEAK_BYTES_PER_S) * 1e3}
 
 
 def chain_vs_plain(fc, label, target, theta0, consts, seed, steps=100,
@@ -290,9 +327,15 @@ def main() -> int:
                            f"{pmpx_torch.__file__}, not from {here}")
     from pmpx_torch import _build, bench
     from pmpx_torch.config import SamplerSpec
+    from pmpx_torch.data import load_mnist
     from pmpx_torch.experiments import ess_msjd, time_analysis
+    from pmpx_torch.experiments import mnist as mnist_mod
     from pmpx_torch.kernels import fused_chain as fc
-    from pmpx_torch.metrics.recorder import load_trace
+    from pmpx_torch.kernels import lstm_fused as lf
+    from pmpx_torch.metrics.recorder import load_trace, reference_style_name
+    from pmpx_torch.models import MnistLSTM, MnistMLP
+    from pmpx_torch.samplers.base import run_chain
+    from pmpx_torch.targets.nn import NNPosterior
     from pmpx_torch.parallel import chains as farm_mod
     from pmpx_torch.kernels import launches, reset_launches
     from pmpx_torch.kernels.linreg import (
@@ -479,6 +522,74 @@ def main() -> int:
                     f"farm chain {c} selections")
             require(err <= CHAIN_ATOL, f"farm chain {c} trace atol")
             farm_err = max(farm_err, err)
+
+    # the MNIST protocol's data (phases 3f, 6 and 10): the synthetic
+    # stand-in at the paper's 60,000 / 10,000 images, as mnist.run draws it
+    mn = dict(zip(("x_train", "y_train", "x_test", "y_test"),
+                  load_mnist(device=dev)))
+
+    def lstm_posterior(split="train", dtype=None):
+        return NNPosterior(MnistLSTM(), mn[f"x_{split}"], mn[f"y_{split}"],
+                           temper=10.0, device=dev, compute_dtype=dtype)
+
+    def time_major(post):
+        return post.X.reshape(-1, 28, 28).transpose(0, 1).contiguous()
+
+    lstm_h_err = 0.0  # max |dh| in f32 over phase 3f's shapes
+
+    with Phase("3f lstm_fused vs plain"):
+        for dtype in (torch.float32, torch.bfloat16):
+            posts = {split: lstm_posterior(split, dtype)
+                     for split in ("train", "test")}
+            for P_l, split in LSTM_SHAPES:
+                post = posts[split]
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(40 + P_l)
+                Theta = post.init_theta() + 0.05 * torch.randn(
+                    (P_l, post.d), generator=gen, device=dev)
+                x_tm, W = time_major(post), lf.gate_weights(post, Theta)
+                before = launches["lstm_fused"]
+                h_k = lf.lstm_final_hidden(x_tm, *W)
+                require(launches["lstm_fused"] == before + 1,
+                        "lstm_fused launched once")
+                dh = (h_k - lf.lstm_final_hidden_ref(x_tm, *W)).abs().max()
+                lp_k = lf.make_fast_log_prob_batch(post)(Theta)
+                lp_p = lf.make_fast_log_prob_batch(
+                    post, hidden=lf.lstm_final_hidden_ref)(Theta)
+                rel = ((lp_k - lp_p).abs() / lp_p.abs()).max().item()
+                label = (f"lstm_fused {str(dtype)[6:]} P={P_l} "
+                         f"B={x_tm.shape[1]}")
+                print(f"{label}: max|dh| {dh.item():.3g}, log-densities "
+                      f"{lp_k.tolist()} against plain {lp_p.tolist()}, max "
+                      f"rel {rel:.3g}")
+                require(bool(torch.isfinite(h_k).all()), f"{label} finite")
+                if dtype == torch.float32:
+                    lstm_h_err = max(lstm_h_err, dh.item())
+                    require(dh.item() <= LSTM_H_TOL, f"{label} |dh|")
+                    require(rel <= LSTM_LP_RTOL, f"{label} log-densities")
+                else:
+                    require(torch.allclose(lp_k, lp_p, rtol=LSTM_BF16_RTOL,
+                                           atol=LSTM_BF16_ATOL),
+                            f"{label} log-densities")
+            del posts
+        # the replay: PMP supersteps of the protocol at full batch
+        post = lstm_posterior()
+        lf.attach(post)
+        rcfg = pmp.PMPConfig(N=1, depth=3, step_size=1e-4,
+                             selection="single", stabilizer="zscore")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(41)
+        eps = 1e-4 * torch.randn((LSTM_REPLAY, rcfg.P, post.d),
+                                 generator=gen, device=dev)
+        u = torch.rand((LSTM_REPLAY, 1), generator=gen, device=dev)
+        agree, err = lf.replay_against_plain(post, rcfg, post.init_theta(),
+                                             eps, u)
+        print(f"lstm PMP replay (P=8, B=60000): {agree}/{LSTM_REPLAY} "
+              f"selections agree; max|err| of the state where they do: "
+              f"{err:.3g}")
+        require(agree >= CHAIN_AGREE * LSTM_REPLAY, "lstm replay selections")
+        require(err == 0.0, "lstm replay states bit-equal")
+        del post, eps
 
     with Phase("4 sweep main path"):
         sweep_us, sweep_trace = bench.time_sweep(
@@ -678,11 +789,75 @@ def main() -> int:
         print(json.dumps({"farm_throughput": farm_curve, "device": name,
                           "power": smi}))
 
+        # lstm_fused at the MNIST protocol's P = 8 over the 60,000 images,
+        # beside P calls of cuDNN's LSTM with the same weights (bias_ih 0,
+        # TF32 off), a yardstick the port never calls
+        post = lstm_posterior()
+        g.manual_seed(60)
+        Theta = post.init_theta() + 0.05 * torch.randn(
+            (8, post.d), generator=g, device=dev)
+        x32, W32 = time_major(post), lf.gate_weights(post, Theta)
+        x16 = x32.bfloat16()
+        W16 = (W32[0].bfloat16(), W32[1].bfloat16(), W32[2])
+        ms = event_ms(lambda: lf.lstm_final_hidden(x32, *W32), 10)
+        ms_bf16 = event_ms(lambda: lf.lstm_final_hidden(x16, *W16), 10)
+        plain_ms = event_ms(lambda: lf.lstm_final_hidden_ref(x32, *W32), 3)
+        plain_ms_bf16 = event_ms(
+            lambda: lf.lstm_final_hidden_ref(x16, *W16), 3)
+
+        def cudnn_lstms(dtype):
+            """8 torch LSTMs in ``dtype`` holding the kernel's 8 weight
+            sets in torch's layout, each weight in one buffer."""
+            mods = []
+            for p in range(8):
+                m = torch.nn.LSTM(28, 64, device=dev, dtype=dtype)
+                with torch.no_grad():
+                    m.weight_ih_l0.copy_(W32[0][p].T)
+                    m.weight_hh_l0.copy_(W32[1][p].T)
+                    m.bias_hh_l0.copy_(W32[2][p])
+                    m.bias_ih_l0.zero_()
+                m.flatten_parameters()
+                mods.append(m)
+            return mods
+
+        lib, lib_warn = {}, {}
+        with torch.no_grad():
+            for dtype, x in ((torch.float32, x32), (torch.bfloat16, x16)):
+                mods = cudnn_lstms(dtype)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    lib[dtype] = event_ms(
+                        lambda mods=mods, x=x: [m(x)[1][0] for m in mods], 10)
+                lib_warn[str(dtype)[6:]] = sorted(
+                    {str(w.message)[:80] for w in caught})
+            h_lib = torch.stack([m(x32)[1][0][0]
+                                 for m in cudnn_lstms(torch.float32)])
+        lib_err = (h_lib - lf.lstm_final_hidden(x32, *W32)).abs().max().item()
+        print(f"lstm_fused: cuDNN's f32 h_T against the kernel's (the same "
+              f"weights through torch's LSTM layout): max|dh| {lib_err:.3g}; "
+              f"cuDNN's warnings while timed: {lib_warn}")
+        require(lib_err <= LSTM_LIB_TOL, "cuDNN's h_T against the kernel's")
+        lib_ms, lib_ms_bf16 = lib[torch.float32], lib[torch.bfloat16]
+        bd = lstm_fused_bound()
+        kernels.append({
+            "name": "lstm_fused", "route": "cuda",
+            "source": "pmpx_torch/csrc/lstm_fused.cu",
+            "replaces": "pmpx/kernels/lstm_fused.py:48",
+            "launches": None,  # from the MNIST path, phase 10
+            "max_abs_err": lstm_h_err,  # f32 h_T against plain, phase 3f
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms_f32"],
+            "bound_by": bd["bound_by_f32"], "library_ms": lib_ms,
+            "ms_bf16": ms_bf16, "plain_ms_bf16": plain_ms_bf16,
+            "library_ms_bf16": lib_ms_bf16, "library_warnings": lib_warn,
+            "bound_ms_bf16_tensor": bd["bound_ms_bf16_tensor"],
+            "library_max_abs_diff": lib_err, "P": 8, "B": 60_000,
+        })
+        del post, h_lib
+
         for k in kernels:
             print(f"{k['name']}: {k['ms']:.6g} ms/launch, plain "
                   f"{k['plain_ms']:.6g} ms, bound {k['bound_ms']:.6g} ms "
                   f"({k['bound_by']})")
-        print(json.dumps({"not_ported": [lstm_fused_bound()]}))
 
     with Phase("7 time grid"):
         with tempfile.TemporaryDirectory() as tmp:
@@ -848,6 +1023,73 @@ def main() -> int:
             if k["name"] in phase9:
                 k["launches"] = ess_runs[phase9[k["name"]]]["launches"][
                     k["name"]]
+
+    with Phase("10 mnist"):
+        mnist_runs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            # the kernel-path density at the LSTM warm start (the Adam
+            # pretrain of run()) against the generic path's
+            tgt = lstm_posterior()
+            th_ws = mnist_mod.pretrain(tgt, 50)
+            with torch.no_grad():
+                generic = tgt.log_prob(th_ws).item()
+                lf.attach(tgt)
+                kern = tgt.log_prob(th_ws).item()
+            rel = abs(kern - generic) / abs(generic)
+            print(f"LSTM warm start: kernel-path log-density {kern!r}, "
+                  f"generic path {generic!r}, rel {rel:.3g}")
+            require(rel <= LSTM_LP_RTOL, "kernel-path density at theta0")
+            # where a superstep's time goes: a torch.profiler trace of
+            # MNIST_PROFILE PMP supersteps (N = 7, alpha 1e-4) after a
+            # warm-up, LSTM through the kernel and FC on the generic path
+            fc_t = NNPosterior(MnistMLP(), mn["x_train"], mn["y_train"],
+                               temper=10.0, device=dev)
+            for label, t, th in (("LSTM_pmp", tgt, th_ws),
+                                 ("FC_pmp", fc_t, fc_t.init_theta())):
+                sup = mnist_mod.sampler_spec("pmp", 1e-4, 7).build(t)
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(1)
+                with torch.no_grad():
+                    chain = lambda s=sup, th=th: run_chain(  # noqa: E731
+                        s, gen, th, MNIST_PROFILE, collect=lambda a, o: a)
+                    chain()
+                    prof = bench.profile_path(chain)
+                print(json.dumps({"profile": f"mnist_{label}",
+                                  "supersteps": MNIST_PROFILE, **prof}))
+            del tgt, fc_t
+            for model, algo, steps in MNIST_CELLS:
+                label = f"{model}_{algo}"
+                kernel = model == "LSTM"
+                reset_launches()
+                out = mnist_mod.run(model=model, algo=algo, N=7,
+                                    scale="paper", num_steps=steps,
+                                    lstm_kernel=kernel,
+                                    out_dir=f"{tmp}/{label}", device=dev)
+                counts = {k: v for k, v in launches.items() if v}
+                stem = reference_style_name(algo.upper(), 1e-4, steps,
+                                            model=model, N=7)
+                with open(f"{tmp}/{label}/{stem}.json") as fh:
+                    meta = json.load(fh)
+                losses = load_trace(f"{tmp}/{label}/{stem}.npz")["loss"]
+                mnist_runs[label] = {"launches": counts, **out}
+                print(json.dumps({
+                    "mnist": label, "model": model, "algo": algo, "N": 7,
+                    "lstm_kernel": kernel,
+                    "us_per_superstep": meta["us_per_superstep"],
+                    "chain_wall_s": meta["chain_wall_s"], "launches": counts,
+                    **out, "num_steps": steps, "n_train": 60_000,
+                    "n_test": 10_000,
+                    "reduced": f"num_steps {steps} (the paper's "
+                               f"{mnist_mod.PAPER_STEPS[model]:,})",
+                    "device": name, "power": smi}))
+                require(bool(np.isfinite(losses).all()), f"{label} losses")
+                require(np.unique(losses).size > 1, f"{label}: chain moved")
+                require(counts == ({"lstm_fused": steps} if kernel else {}),
+                        f"{label}: one lstm_fused launch per superstep")
+        for k in kernels:
+            if k["name"] == "lstm_fused":
+                k["launches"] = sum(r["launches"].get("lstm_fused", 0)
+                                    for r in mnist_runs.values())
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

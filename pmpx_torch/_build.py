@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels and load them with ``ctypes``.
 
-All sources under ``pmpx_torch/csrc/`` go through one ``nvcc`` call into a
+Each source under ``pmpx_torch/csrc/`` is compiled by its own ``nvcc -c``,
+all started together, and one more ``nvcc`` links the objects into a
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds), written to ``pmpx_torch/_build/``.  The library's name
 carries a hash of the sources and flags: an edit to a source builds a new
@@ -30,8 +31,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 BUILD_TIMEOUT_S = 600
 
 _P = ctypes.c_void_p
@@ -44,6 +46,7 @@ _SIGNATURES = {
         [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
          _I, _F, _F, _F, _F, _P]
     ),
+    "pmpx_lstm_fused": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -72,30 +75,57 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run(procs: list) -> str:
+    """Wait for every started ``nvcc``; raise on the first that failed."""
+    logs, failed = [], None
+    for cmd, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        logs.append(err + out)
+        if proc.returncode != 0 and failed is None:
+            failed = RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{err}{out}"
+            )
+    if failed is not None:
+        raise failed
+    return "".join(logs)
+
+
+def _start(cmd: list) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def _compile(so: Path) -> tuple[float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *cu]
     t0 = time.perf_counter()
-    res = subprocess.run(
-        cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S
-    )
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
+    try:
+        log = _run([_start([nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                            str(src)]) for src, obj in zip(cu, objs)])
+        log += _run([_start([nvcc_path(), *LINK_FLAGS, "-o", str(tmp),
+                             *map(str, objs)])])
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stderr}{res.stdout}"
-        )
-    log = res.stderr + res.stdout
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)  # atomic: a reader never sees half a library
     return seconds, log

@@ -22,11 +22,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import tempfile
 import time
 
 import torch
 
+from pmpx_torch import _build
 from pmpx_torch._device import resolve_device
 from pmpx_torch.kernels import fused_chain as fc
 from pmpx_torch.samplers import pmp
@@ -127,6 +129,14 @@ def least_squares(target):
 
 
 _OWN = "(anonymous namespace)::"
+_GLOBAL = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+
+
+def _own_kernels() -> set:
+    """The names of the ``__global__`` functions in ``pmpx_torch/csrc``."""
+    return {name for src in sorted(_build.CSRC.glob("*.cu"))
+            for name in _GLOBAL.findall(src.read_text())}
 
 
 def profile_path(fn) -> dict:
@@ -159,14 +169,21 @@ def profile_path(fn) -> dict:
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    mine = _own_kernels()
+    own = {}
+    for n, us in by_name.items():
+        n = n.removeprefix("void ")
+        if n.startswith(_OWN):
+            base = n[len(_OWN):].split("(")[0]
+            if base.split("<")[0] in mine:
+                own[base] = us
     return {
         "kernels": len(kernels), "device_busy_us": busy, "span_us": span,
         "wall_us": wall_us, "idle_share": 1.0 - busy / span,
         "top": [{"name": n[:80], "us": us} for n, us in top],
         # the port's own kernels (pmpx_torch/csrc keeps them in anonymous
-        # namespaces)
-        "own": {n[len(_OWN):].split("(")[0]: us
-                for n, us in by_name.items() if n.startswith(_OWN)},
+        # namespaces, as PyTorch keeps some of its own)
+        "own": own,
     }
 
 

@@ -6,6 +6,8 @@ and ``run``):
         --include_conv_pmp true
     python -m pmpx_torch.cli run time_analysis --method sweep --device cpu
     python -m pmpx_torch.cli run cores_sweep --method fused_chain --algo mp
+    python -m pmpx_torch.cli run mnist --model LSTM --algo pmp --N 7 \
+        --lstm_kernel true --scale paper --num_steps 1000
 
 Arbitrary ``--key value`` pairs are forwarded to the experiment's ``run()``
 (ints/floats/bools/tuples parsed from the string).  ``--device`` names the

@@ -1,10 +1,14 @@
 """Carry state from ``pmpx`` (JAX) into the port without importing either
 JAX or ``pmpx``: data and states cross as NumPy arrays, configurations as
-their fields."""
+their fields.  The NN part (port of ``pmpx/interop.py``) maps torch
+checkpoints, such as the reference's pretrained ``LSTM_model.pkl``, and
+flax parameter trees onto an :class:`~pmpx_torch.targets.nn.NNPosterior`'s
+theta."""
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -18,8 +22,11 @@ from pmpx_torch.targets.linreg import BayesLinReg
 __all__ = [
     "analytic_from_jax",
     "linreg_from_numpy",
+    "load_torch_pickle",
+    "nn_theta_from_params",
     "pmp_config_from_jax",
     "theta_from_numpy",
+    "theta_from_torch_state",
 ]
 
 
@@ -61,3 +68,95 @@ def analytic_from_jax(target):
                         f"{type(target).__name__}")
     return cls(**{f.name: getattr(target, f.name)
                   for f in dataclasses.fields(cls)})
+
+
+def load_torch_pickle(path: str) -> dict:
+    """A torch ``.pkl``/``.pth`` state dict as NumPy arrays (CPU)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach().numpy() for k, v in sd.items()}
+
+
+def _convert_linear(w: np.ndarray, b: np.ndarray) -> dict:
+    # torch Linear stores (out, in); flax Dense kernel is (in, out)
+    return {"kernel": w.T, "bias": b}
+
+
+def _convert_lstm(w_ih, w_hh, b_ih, b_hh) -> dict:
+    """torch ``nn.LSTM`` l0 tensors -> flax ``OptimizedLSTMCell`` leaves.
+    Both stack the gates (i, f, g, o); flax keeps the one bias on the
+    hidden side, so it receives b_ih + b_hh (only ever used summed)."""
+    hidden = w_hh.shape[1]
+    out = {}
+    for g, name in enumerate("ifgo"):
+        sl = slice(g * hidden, (g + 1) * hidden)
+        out[f"i{name}"] = {"kernel": w_ih[sl].T}
+        out[f"h{name}"] = {"kernel": w_hh[sl].T, "bias": b_ih[sl] + b_hh[sl]}
+    return out
+
+
+def _natural(name: str):
+    # flax auto-names (Dense_0, Dense_10) sort by their numeric suffix
+    m = re.match(r"(.*?)_(\d+)$", name)
+    return (m.group(1), int(m.group(2))) if m else (name, -1)
+
+
+def theta_from_torch_state(posterior, state: dict) -> torch.Tensor:
+    """Map a torch state dict onto an ``NNPosterior``'s theta, by
+    ``pmpx``'s rules: torch layers in insertion order, matched to the
+    model's flax modules by kind in natural ``Dense_k`` order; ``Linear``
+    weight/bias pairs become ``Dense`` leaves, ``nn.LSTM`` quadruples
+    (``weight_ih_l0``, ``weight_hh_l0``, both biases) ``OptimizedLSTMCell``
+    leaves with ``b_ih + b_hh`` on the hidden side.  Conv and BatchNorm
+    layers wait for the CNN and LeNet (ROADMAP §1 items 17-18) and raise
+    ``NotImplementedError``; a layer left over or missing raises
+    ``ValueError``."""
+    queues: dict = {}
+    seen_lstm = set()
+    for k in state:
+        m = re.match(r"(.*?)\.?weight_ih_l0$", k)
+        if m:
+            base = m.group(1)
+            if base in seen_lstm:
+                continue
+            seen_lstm.add(base)
+            pre = base + "." if base else ""
+            queues.setdefault("lstm", []).append(_convert_lstm(
+                state[f"{pre}weight_ih_l0"], state[f"{pre}weight_hh_l0"],
+                state[f"{pre}bias_ih_l0"], state[f"{pre}bias_hh_l0"]))
+            continue
+        stem = k[: -len("weight")]
+        if not k.endswith("weight") or stem + "bias" not in state:
+            continue
+        w, b = np.asarray(state[k]), np.asarray(state[stem + "bias"])
+        if w.ndim == 4:
+            raise NotImplementedError(
+                f"{k}: conv layers are not ported yet (ROADMAP §1 item 17)")
+        if w.ndim == 1:
+            raise NotImplementedError(
+                f"{k}: BatchNorm layers are not ported yet (LeNet, ROADMAP "
+                f"§1 item 18)")
+        if w.ndim == 2:
+            queues.setdefault("dense", []).append(_convert_linear(w, b))
+
+    kind_of = {"Dense": "dense", "OptimizedLSTMCell": "lstm"}
+    modules = sorted({path.split(".")[0] for path, _, _ in posterior.layout},
+                     key=_natural)
+    params = {}
+    for name in modules:
+        kind = kind_of.get(_natural(name)[0])
+        if not queues.get(kind):
+            raise ValueError(
+                f"model expects a {kind!r} layer for {name} but the torch "
+                f"state has none left")
+        params[name] = queues[kind].pop(0)
+    leftovers = {k: len(v) for k, v in queues.items() if v}
+    if leftovers:
+        raise ValueError(f"unconsumed torch layers: {leftovers}")
+    return posterior.theta_from_params(params)
+
+
+def nn_theta_from_params(posterior, params: dict) -> torch.Tensor:
+    """An ``NNPosterior``'s theta from a flax parameter tree of NumPy
+    arrays (what ``jax.tree.map(np.asarray, post._unravel(theta))`` gives
+    for a ``pmpx`` posterior over the same model)."""
+    return posterior.theta_from_params(params)

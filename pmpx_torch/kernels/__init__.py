@@ -5,7 +5,8 @@ version.
 adds one where it launches its kernel and nowhere else (the plain version
 on a CPU tensor does not count).  ``fused_chain`` counts one chain with
 ``emit="root"`` per mode, ``*_all`` one chain with ``emit="all"``, and
-``fused_chain_farm`` a launch of a farm of chains in any mode.
+``fused_chain_farm`` a launch of a farm of chains in any mode,
+``lstm_fused`` one launch of the LSTM forward for P parameter sets.
 """
 
 launches = {
@@ -17,6 +18,7 @@ launches = {
     "fused_chain_mp_all": 0,
     "fused_chain_general_all": 0,
     "fused_chain_farm": 0,
+    "lstm_fused": 0,
 }
 
 

@@ -131,7 +131,7 @@ def test_common_helpers():
 
 
 def test_cli_list_and_run(tmp_path, capsys):
-    assert EXPERIMENTS == ["cores_sweep", "ess_msjd", "time_analysis"]
+    assert EXPERIMENTS == ["cores_sweep", "ess_msjd", "mnist", "time_analysis"]
     assert cli.main(["list"]) == 0
     listed = capsys.readouterr().out.split()
     assert "time_analysis" in listed and "cores_sweep" in listed

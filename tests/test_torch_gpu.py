@@ -278,3 +278,109 @@ def test_chain_farm_injected_uniforms_match_plain(cuda, N, depth):
             got[c], **kw)
         assert agree >= 0.99 * steps
         assert err <= 1e-4
+
+
+def _lstm_weights(g, P, dtype, device, scale=0.2):
+    F, H = 28, 64
+    Wx = (scale * torch.randn((P, F, 4 * H), generator=g, device=device)
+          ).to(dtype)
+    Wh = (scale * torch.randn((P, H, 4 * H), generator=g, device=device)
+          ).to(dtype)
+    b = 0.1 * torch.randn((P, 4 * H), generator=g, device=device)
+    return Wx, Wh, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,B", [(8, 100), (2, 64), (1, 1000), (8, 10_000)])
+def test_lstm_fused_kernel_matches_plain(cuda, P, B, dtype):
+    """h_T of the kernel against its plain version: f32 within 2e-5
+    (pmpx's kernel-vs-XLA tolerance, tests/test_lstm_kernel.py:43); bf16,
+    where an f32 difference can flip one bf16 rounding of h, within 0.05
+    (h in [-1, 1]).  One launch; a second launch bit-equal."""
+    from pmpx_torch.kernels import lstm_fused as lf
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(P * B)
+    x_tm = torch.randn((28, B, 28), generator=g, device=cuda).to(dtype)
+    Wx, Wh, b = _lstm_weights(g, P, dtype, cuda)
+    before = launches["lstm_fused"]
+    got = lf.lstm_final_hidden(x_tm, Wx, Wh, b)
+    assert launches["lstm_fused"] == before + 1
+    want = lf.lstm_final_hidden_ref(x_tm, Wx, Wh, b)
+    assert got.shape == (P, B, 64) and got.dtype == torch.float32
+    atol = 2e-5 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert torch.equal(got, lf.lstm_final_hidden(x_tm, Wx, Wh, b))
+
+
+@pytest.mark.gpu
+def test_lstm_fused_kernel_refuses_other_shapes(cuda):
+    from pmpx_torch.kernels import lstm_fused as lf
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    x_tm = torch.randn((28, 16, 20), generator=g, device=cuda)
+    Wx = torch.randn((2, 20, 256), generator=g, device=cuda)
+    Wh = torch.randn((2, 64, 256), generator=g, device=cuda)
+    b = torch.zeros((2, 256), device=cuda)
+    with pytest.raises(ValueError):
+        lf.lstm_final_hidden(x_tm, Wx, Wh, b)
+    with pytest.raises(TypeError):
+        lf.lstm_final_hidden(x_tm.double(), Wx, Wh, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_lstm_posterior_kernel_path_matches_generic(cuda, compute_dtype):
+    """The attached posterior's log-densities against the generic path
+    (vmap of functional_call): f32 within rtol 2e-5, bf16 within rtol
+    0.02 / atol 0.05 (pmpx's tests/test_lstm_kernel.py:43, :89)."""
+    from pmpx_torch.kernels import lstm_fused as lf
+    from pmpx_torch.models import MnistLSTM
+    from pmpx_torch.targets.nn import NNPosterior
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    X = torch.randn((1000, 28, 28), generator=g, device=cuda)
+    Y = torch.randint(0, 10, (1000,), generator=g, device=cuda)
+    post = NNPosterior(MnistLSTM(), X, Y, temper=10.0, device=cuda,
+                       compute_dtype=compute_dtype)
+    Theta = post.init_theta() + 0.05 * torch.randn(
+        (8, post.d), generator=g, device=cuda)
+    want = post.log_prob_batch(Theta)
+    lf.attach(post)
+    before = launches["lstm_fused"]
+    got = post.log_prob_batch(Theta)
+    assert launches["lstm_fused"] == before + 1
+    if compute_dtype is None:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got, want, rtol=0.02, atol=0.05)
+    assert torch.equal(post.log_prob(Theta[3]), got[3])
+
+
+@pytest.mark.gpu
+def test_lstm_pmp_replay_against_plain(cuda):
+    """20 PMP supersteps (binary depth 3, single, zscore) over the
+    attached posterior on injected noise, each replayed through the plain
+    version from the kernel path's state: >= 99% of the selections equal
+    and the states bit-equal where they are."""
+    from pmpx_torch.kernels import lstm_fused as lf
+    from pmpx_torch.models import MnistLSTM
+    from pmpx_torch.targets.nn import NNPosterior
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    X = torch.randn((600, 28, 28), generator=g, device=cuda)
+    Y = torch.randint(0, 10, (600,), generator=g, device=cuda)
+    post = NNPosterior(MnistLSTM(), X, Y, temper=10.0, device=cuda)
+    lf.attach(post)
+    cfg = PMPConfig(N=1, depth=3, step_size=1e-2, selection="single",
+                    stabilizer="zscore")
+    steps = 20
+    eps = 1e-2 * torch.randn((steps, 8, post.d), generator=g, device=cuda)
+    u = torch.rand((steps, 1), generator=g, device=cuda)
+    agree, err = lf.replay_against_plain(post, cfg, post.init_theta(), eps, u)
+    assert agree >= 0.99 * steps
+    assert err == 0.0
