@@ -10,7 +10,8 @@ Phases, each printing its wall time:
 
 0. the card, its power limit, the torch and nvcc versions;
 1. the kernels' build (``nvcc`` into ``pmpx_torch/_build/``), with the
-   registers, shared memory and spills ``ptxas`` reports;
+   registers, shared memory and spills ``ptxas`` reports, and the
+   tensor-core instructions in ``lstm_fused_kernel``'s SASS (``cuobjdump``);
 2. ``linreg_rss`` against its plain version at the shapes the sweep
    paths give it;
 3. ``fused_chain`` (injected uniforms) against its plain version, step by
@@ -29,8 +30,9 @@ Phases, each printing its wall time:
 6. each kernel's time beside its plain version's and its bound (the
    launches of each from the time grid of phase 7, the ESS protocol of
    phase 9 and the MNIST path of phase 10), ``lstm_fused``'s beside P
-   calls of cuDNN's LSTM, and the farm's supersteps per second against
-   its chain count;
+   calls of cuDNN's LSTM (its bf16 weights flattened by hand, and as torch
+   leaves them) and its tensor-core and transcendental bounds, and the
+   farm's supersteps per second against its chain count;
 7. the time grid of the reference (``pmpx_torch.experiments.
    time_analysis``) at full width on both paths, with a posterior check of
    a flat-MP and a general fused chain;
@@ -70,7 +72,16 @@ import torch
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
+PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
+# The multi-function units (exp2, reciprocal): 16 results a clock on each of
+# the 132 SMs (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), at the 1.98 GHz boost clock behind
+# the peaks above (67 TFLOP/s = 132 SMs x 128 FMA x 2 x 1.98 GHz).
+MUFU_PER_S = 132 * 16 * 1.98e9
+# csrc/lstm_fused.cu's cell update per (row, unit, step): 5 exp2 (the
+# sigmoids of i, f, o, tanh of g and of c) and 3 reciprocals
+LSTM_MUFU_PER_CELL = 8
 
 RSS_TOL = 1e-5  # relative to max|rss|: f32 sums of ~1e5 terms, two orders
 CHAIN_ATOL = 1e-4
@@ -263,18 +274,61 @@ def lstm_fused_bound(P: int = 8, B: int = 60_000, T: int = 28, F: int = 28,
     (lstm_final_hidden, lstm_fused.py:83-115).  8 H (F + H) T flops per
     parameter set and example (the two gate matmuls); bytes: x (T, B, F)
     read once, the P weight sets read once, (P, B, H) written, all f32.
-    Against f32 on the CUDA cores and against bf16 inputs (x, Wx, Wh; the
-    bias and h_T stay f32) on the tensor cores (989 TFLOP/s)."""
+    Against f32 on the CUDA cores (the route before the tensor cores), as
+    3xTF32 (three TF32 products) on the tensor cores (495 TFLOP/s), and
+    against bf16 inputs (x, Wx, Wh; the bias and h_T stay f32) on the
+    tensor cores (989 TFLOP/s).  The transcendental floor: the cell
+    update's LSTM_MUFU_PER_CELL multi-function-unit results per (row,
+    unit, step) at MUFU_PER_S.  ``bound_ms`` and ``bound_ms_bf16`` are the
+    least times of the kernel's own routes: the larger of their product's
+    bound and the transcendental floor."""
     flops = 8.0 * H * (F + H) * T * P * B
     wide = T * B * F + P * (F * 4 * H + H * 4 * H)
     narrow = P * 4 * H + P * B * H
     nbytes = 4.0 * (wide + narrow)
     b_ms, b_by = bound(flops, nbytes)
+    ms_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    ms_3xtf32 = 3.0 * flops / PEAK_TF32_FLOPS * 1e3
+    ms_bf16 = max(flops / PEAK_BF16_FLOPS * 1e3,
+                  (2.0 * wide + 4.0 * narrow) / PEAK_BYTES_PER_S * 1e3)
+    ms_mufu = LSTM_MUFU_PER_CELL * P * B * H * T / MUFU_PER_S * 1e3
     return {"P": P, "B": B, "flops": flops, "bytes": nbytes,
             "bound_ms_f32": b_ms, "bound_by_f32": b_by,
-            "bound_ms_bf16_tensor": max(
-                flops / PEAK_BF16_FLOPS,
-                (2.0 * wide + 4.0 * narrow) / PEAK_BYTES_PER_S) * 1e3}
+            "bound_ms_3xtf32": ms_3xtf32, "bound_ms_bf16_tensor": ms_bf16,
+            "transcendental_floor_ms": ms_mufu,
+            "bound_ms": max(ms_3xtf32, ms_mufu, ms_bytes),
+            "bound_ms_bf16": max(ms_bf16, ms_mufu)}
+
+
+def lstm_sass_mma(so: Path) -> dict:
+    """The tensor-core instructions in each instantiation of
+    lstm_fused_kernel, counted in ``cuobjdump -sass`` of the built library:
+    HMMA (mma.sync) and HGMMA (Hopper's wgmma), {"float" | "bfloat16":
+    {"hmma": n, "hgmma": m, "opcodes": [...]}}."""
+    from pmpx_torch import _build
+
+    tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, timeout=120)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {res.stderr}")
+    tags = (("float", "lstm_fused_kernelIfE"),
+            ("bfloat16", "lstm_fused_kernelI13__nv_bfloat16E"))
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = next((tag for tag, m in tags if m in line), None)
+            if fn:
+                counts[fn] = {"hmma": 0, "hgmma": 0, "opcodes": set()}
+            continue
+        for op in ("HGMMA", "HMMA"):
+            if fn and f" {op}." in line:
+                counts[fn][op.lower()] += 1
+                counts[fn]["opcodes"].add(
+                    op + line.split(f" {op}", 1)[1].split()[0])
+                break
+    return {k: {**v, "opcodes": sorted(v["opcodes"])}
+            for k, v in counts.items()}
 
 
 def chain_vs_plain(fc, label, target, theta0, consts, seed, steps=100,
@@ -365,6 +419,15 @@ def main() -> int:
         for line in built.log.splitlines():
             if "ptxas" in line or "spill" in line or "Used" in line:
                 print("  " + line.strip())
+        # the gate products of lstm_fused on the tensor cores: TF32 HGMMA
+        # (wgmma) in the f32 instantiation, BF16 HMMA (mma.sync) in bf16
+        mma = lstm_sass_mma(built.path)
+        print(f"lstm_fused_kernel SASS: {json.dumps(mma)}")
+        for tag, kind in (("float", ".TF32"), ("bfloat16", ".BF16")):
+            got = mma.get(tag, {"hmma": 0, "hgmma": 0, "opcodes": []})
+            require(got["hmma"] + got["hgmma"] > 0
+                    and all(kind in op for op in got["opcodes"]),
+                    f"tensor-core {kind[1:]} MMA in lstm_fused_kernel<{tag}>")
 
     with Phase("2 linreg_rss vs plain"):
         rss_err = 0.0
@@ -805,9 +868,15 @@ def main() -> int:
         plain_ms_bf16 = event_ms(
             lambda: lf.lstm_final_hidden_ref(x16, *W16), 3)
 
-        def cudnn_lstms(dtype):
+        def cudnn_lstms(dtype, flat=True):
             """8 torch LSTMs in ``dtype`` holding the kernel's 8 weight
-            sets in torch's layout, each weight in one buffer."""
+            sets in torch's layout, each module's weights in one buffer
+            unless ``flat`` is False.  flatten_parameters() returns early
+            for bf16 (torch.backends.cudnn.is_acceptable takes half, float
+            and double only), so cuDNN warns and compacts the weights at
+            every call; the same flattening is called here directly."""
+            import torch.backends.cudnn.rnn as cudnn_rnn
+
             mods = []
             for p in range(8):
                 m = torch.nn.LSTM(28, 64, device=dev, dtype=dtype)
@@ -816,43 +885,65 @@ def main() -> int:
                     m.weight_hh_l0.copy_(W32[1][p].T)
                     m.bias_hh_l0.copy_(W32[2][p])
                     m.bias_ih_l0.zero_()
-                m.flatten_parameters()
+                    if flat:
+                        torch._cudnn_rnn_flatten_weight(
+                            m._flat_weights, 4, m.input_size,
+                            cudnn_rnn.get_cudnn_mode(m.mode), m.hidden_size,
+                            m.proj_size, m.num_layers, m.batch_first,
+                            bool(m.bidirectional))
                 mods.append(m)
             return mods
 
         lib, lib_warn = {}, {}
         with torch.no_grad():
-            for dtype, x in ((torch.float32, x32), (torch.bfloat16, x16)):
-                mods = cudnn_lstms(dtype)
+            for label, dtype, x, flat in (
+                    ("float32", torch.float32, x32, True),
+                    ("bfloat16", torch.bfloat16, x16, True),
+                    ("bfloat16_compacting", torch.bfloat16, x16, False)):
+                mods = cudnn_lstms(dtype, flat)
                 with warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
-                    lib[dtype] = event_ms(
+                    lib[label] = event_ms(
                         lambda mods=mods, x=x: [m(x)[1][0] for m in mods], 10)
-                lib_warn[str(dtype)[6:]] = sorted(
+                lib_warn[label] = sorted(
                     {str(w.message)[:80] for w in caught})
             h_lib = torch.stack([m(x32)[1][0][0]
                                  for m in cudnn_lstms(torch.float32)])
+            h_lib16 = torch.stack([m(x16)[1][0][0].float()
+                                   for m in cudnn_lstms(torch.bfloat16)])
         lib_err = (h_lib - lf.lstm_final_hidden(x32, *W32)).abs().max().item()
         print(f"lstm_fused: cuDNN's f32 h_T against the kernel's (the same "
               f"weights through torch's LSTM layout): max|dh| {lib_err:.3g}; "
               f"cuDNN's warnings while timed: {lib_warn}")
         require(lib_err <= LSTM_LIB_TOL, "cuDNN's h_T against the kernel's")
-        lib_ms, lib_ms_bf16 = lib[torch.float32], lib[torch.bfloat16]
+        require(not lib_warn["bfloat16"], "cuDNN's bf16 weights flattened")
+        # cuDNN's bf16 LSTM rounds its own sums and h; a sanity check only
+        lib_err16 = (h_lib16 - lf.lstm_final_hidden(x16, *W16)).abs().max()
+        print(f"lstm_fused: cuDNN's bf16 h_T against the kernel's: max|dh| "
+              f"{lib_err16.item():.3g}")
+        lib_ms, lib_ms_bf16 = lib["float32"], lib["bfloat16"]
         bd = lstm_fused_bound()
+        print(f"lstm_fused bounds (P=8, B=60000): {json.dumps(bd)}")
         kernels.append({
             "name": "lstm_fused", "route": "cuda",
             "source": "pmpx_torch/csrc/lstm_fused.cu",
             "replaces": "pmpx/kernels/lstm_fused.py:48",
             "launches": None,  # from the MNIST path, phase 10
             "max_abs_err": lstm_h_err,  # f32 h_T against plain, phase 3f
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms_f32"],
-            "bound_by": bd["bound_by_f32"], "library_ms": lib_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": "operations", "library_ms": lib_ms,
             "ms_bf16": ms_bf16, "plain_ms_bf16": plain_ms_bf16,
-            "library_ms_bf16": lib_ms_bf16, "library_warnings": lib_warn,
+            "library_ms_bf16": lib_ms_bf16,
+            "library_ms_bf16_compacting": lib["bfloat16_compacting"],
+            "library_warnings": lib_warn,
+            "bound_ms_bf16": bd["bound_ms_bf16"],
+            "bound_ms_f32_cuda_cores": bd["bound_ms_f32"],
+            "bound_ms_3xtf32": bd["bound_ms_3xtf32"],
             "bound_ms_bf16_tensor": bd["bound_ms_bf16_tensor"],
+            "transcendental_floor_ms": bd["transcendental_floor_ms"],
             "library_max_abs_diff": lib_err, "P": 8, "B": 60_000,
         })
-        del post, h_lib
+        del post, h_lib, h_lib16
 
         for k in kernels:
             print(f"{k['name']}: {k['ms']:.6g} ms/launch, plain "

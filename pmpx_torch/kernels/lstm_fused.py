@@ -5,9 +5,12 @@ The MNIST LSTM posterior (reference ``complex_nets/Mnist/LSTM/
 PMP_LSTM.py``: 28-step row sequence, 64 hidden units, the full batch of
 60,000) evaluates P parameter sets per superstep.  :func:`lstm_final_hidden`
 launches the CUDA kernel ``csrc/lstm_fused.cu`` for CUDA tensors: the whole
-28-step recurrence of every (batch tile, p) runs in one block, and only the
-final hidden states (P, B, H) reach device memory.  For CPU tensors it runs
-the plain version :func:`lstm_final_hidden_ref`, a 28-step loop.
+28-step recurrence of every (batch tile, p) runs in one block, both gate
+products on the tensor cores (3xTF32 through ``wgmma`` in float32, one
+bfloat16 ``mma.sync`` product in bfloat16), the cell update in registers,
+and only the final hidden states (P, B, H) reach device memory.  For CPU
+tensors it runs the plain version :func:`lstm_final_hidden_ref`, a 28-step
+loop.
 
 The weights follow flax's ``OptimizedLSTMCell``: gate columns [i|f|g|o],
 input kernels ``i{i,f,g,o}`` without bias, the one bias on the hidden side.
@@ -81,7 +84,9 @@ def lstm_final_hidden(x_tm: torch.Tensor, Wx: torch.Tensor, Wh: torch.Tensor,
         columns [i|f|g|o]; x_tm, Wx, Wh float32, or bfloat16 (then h is
         rounded to bfloat16 before each hidden product).
     b : (P, 4H) float32 hidden biases.
-    Returns (P, B, H) float32.  The kernel takes F = 28 and H = 64.
+    Returns (P, B, H) float32.  The kernel takes F = 28 and H = 64, and
+    x_tm aligned to 16 bytes in float32 or 8 in bfloat16 (any tensor of
+    its own storage is).
     """
     _check(x_tm, Wx, Wh, b)
     dev = x_tm.device

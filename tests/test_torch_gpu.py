@@ -290,19 +290,28 @@ def _lstm_weights(g, P, dtype, device, scale=0.2):
     return Wx, Wh, b
 
 
+# the kernel's 64-row tile: one row, one tile less and more by one, two
+# tiles and one row, for P = 1, 2 and 8
+_LSTM_EDGES = [(P, B) for P in (1, 2, 8) for B in (1, 63, 64, 65, 129)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("x_scale", [1.0, 8.0])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P,B", [(8, 100), (2, 64), (1, 1000), (8, 10_000)])
-def test_lstm_fused_kernel_matches_plain(cuda, P, B, dtype):
+@pytest.mark.parametrize("P,B", list(dict.fromkeys(
+    [(8, 100), (2, 64), (1, 1000), (8, 10_000)] + _LSTM_EDGES)))
+def test_lstm_fused_kernel_matches_plain(cuda, P, B, dtype, x_scale):
     """h_T of the kernel against its plain version: f32 within 2e-5
     (pmpx's kernel-vs-XLA tolerance, tests/test_lstm_kernel.py:43); bf16,
     where an f32 difference can flip one bf16 rounding of h, within 0.05
-    (h in [-1, 1]).  One launch; a second launch bit-equal."""
+    (h in [-1, 1]).  x scaled by 8 gives the hi/lo split large exponents
+    and saturates the gates.  One launch; a second launch bit-equal."""
     from pmpx_torch.kernels import lstm_fused as lf
 
     g = torch.Generator(device=cuda)
     g.manual_seed(P * B)
-    x_tm = torch.randn((28, B, 28), generator=g, device=cuda).to(dtype)
+    x_tm = (x_scale * torch.randn((28, B, 28), generator=g, device=cuda)
+            ).to(dtype)
     Wx, Wh, b = _lstm_weights(g, P, dtype, cuda)
     before = launches["lstm_fused"]
     got = lf.lstm_final_hidden(x_tm, Wx, Wh, b)

@@ -55,6 +55,86 @@ def test_ref_matches_pmpx_interpret_kernel(B, block_b, dtype):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-3)
 
 
+def _tf32_rna(a):
+    """cvt.rna.tf32.f32 on finite f32 values: the mantissa rounded to 10
+    bits, ties away from zero (add half of the 13 dropped bits to the
+    magnitude, then drop them)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(a):
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(a - hi)
+
+
+def _product_3xtf32(A, W):
+    """A @ W as csrc/lstm_fused.cu's f32 route forms it: both operands
+    split into hi = tf32(v) and lo = tf32(v - hi), lo*hi + hi*lo + hi*hi
+    summed in f32 (a product of two TF32 values is exact in f32)."""
+    (Ah, Al), (Wh, Wl) = _split(A), _split(W)
+    return Al @ Wh + Ah @ Wl + Ah @ Wh
+
+
+def _product_1xtf32(A, W):
+    return _tf32_rna(A) @ _tf32_rna(W)
+
+
+def _lstm_numpy(x_tm, Wx, Wh, b, product):
+    """The plain recurrence in f32 NumPy with the gate product z = [x_t | h]
+    [Wx ; Wh] + b formed by ``product``."""
+    P, H = Wh.shape[0], Wh.shape[1]
+    W = np.concatenate([Wx, Wh], axis=1)
+    h = np.zeros((P, x_tm.shape[1], H), np.float32)
+    c = np.zeros_like(h)
+    sig = lambda v: np.float32(1) / (np.float32(1) + np.exp(-v))  # noqa
+    with np.errstate(over="ignore"):
+        for xt in x_tm:
+            z = np.stack([product(np.concatenate([xt, h[p]], axis=1), W[p])
+                          for p in range(P)]) + b[:, None, :]
+            zi, zf, zg, zo = np.split(z, 4, axis=-1)
+            c = sig(zf) * c + sig(zi) * np.tanh(zg)
+            h = sig(zo) * np.tanh(c)
+    return h
+
+
+def test_tf32_emulation_rounds_like_cvt_rna():
+    """The emulated cvt.rna.tf32: ties away from zero, hi + lo within
+    2^-21 of the value (2^-22 from each rounding)."""
+    one, tie = np.float32(1.0), np.float32(1.0 + 2.0**-11)
+    assert _tf32_rna(np.array([tie, -tie])).tolist() == [1 + 2.0**-10,
+                                                        -(1 + 2.0**-10)]
+    assert _tf32_rna(np.array([np.float32(1.0 + 2.0**-12)]))[0] == one
+    v = np.random.default_rng(0).standard_normal(10_000).astype(np.float32)
+    hi, lo = _split(v)
+    assert np.all(np.abs(hi + lo - v) <= 2.0**-21 * np.abs(v))
+
+
+@pytest.mark.parametrize("x_scale", [1.0, 8.0])
+def test_3xtf32_gate_product_keeps_f32_accuracy(x_scale):
+    """The f32 kernel's 3xTF32 gate product, emulated in NumPy, through the
+    plain recurrence (P = 2, B = 256): h_T within 4e-6 of the f32 plain
+    version, with x scaled by 8 too (large exponents in the split,
+    saturated gates)."""
+    x_tm, Wx, Wh, b = _inputs(256, 2, seed=8)
+    x_tm = x_scale * x_tm
+    got = _lstm_numpy(x_tm, Wx, Wh, b, _product_3xtf32)
+    want = tlf.lstm_final_hidden_ref(*(torch.tensor(a) for a in
+                                       (x_tm, Wx, Wh, b))).numpy()
+    assert np.abs(got - want).max() <= 4e-6
+
+
+def test_single_pass_tf32_would_fail_the_f32_gate():
+    """One TF32 product (10-bit mantissas) misses the f32 gate of 2e-5 on
+    the same inputs: why the kernel splits its operands."""
+    x_tm, Wx, Wh, b = _inputs(256, 2, seed=8)
+    got = _lstm_numpy(x_tm, Wx, Wh, b, _product_1xtf32)
+    want = tlf.lstm_final_hidden_ref(*(torch.tensor(a) for a in
+                                       (x_tm, Wx, Wh, b))).numpy()
+    assert np.abs(got - want).max() > 2e-5
+
+
 def test_wrapper_checks_its_inputs():
     x_tm, Wx, Wh, b = (torch.tensor(a) for a in _inputs(8, 2, seed=0))
     with pytest.raises(TypeError):
