@@ -10,7 +10,8 @@ Phases, each printing its wall time:
 
 0. the card, its power limit, the torch and nvcc versions;
 1. the kernels' build (``nvcc`` into ``pmpx_torch/_build/``), with the
-   registers, shared memory and spills ``ptxas`` reports, and the
+   registers, shared memory and spills ``ptxas`` reports (and, by name,
+   those of ``chain_binary_kernel<false>`` and ``<true>``), and the
    tensor-core instructions in ``lstm_fused_kernel``'s SASS (``cuobjdump``);
 2. ``linreg_rss`` against its plain version at the shapes the sweep
    paths give it;
@@ -29,10 +30,12 @@ Phases, each printing its wall time:
 5. the fused main path, likewise;
 6. each kernel's time beside its plain version's and its bound (the
    launches of each from the time grid of phase 7, the ESS protocol of
-   phase 9 and the MNIST path of phase 10), ``lstm_fused``'s beside P
+   phase 9 and the MNIST path of phase 10; a chain kernel's bound is a
+   floor one SM can meet, :func:`chain_sm_bound`), ``lstm_fused``'s beside P
    calls of cuDNN's LSTM (its bf16 weights flattened by hand, and as torch
-   leaves them) and its tensor-core and transcendental bounds, and the
-   farm's supersteps per second against its chain count;
+   leaves them) and its tensor-core and transcendental bounds, the farm's
+   supersteps per second against its chain count, and the binary chain
+   kernel's µs per superstep against P (:func:`binary_p_sweep`);
 7. the time grid of the reference (``pmpx_torch.experiments.
    time_analysis``) at full width on both paths, with a posterior check of
    a flat-MP and a general fused chain;
@@ -59,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -74,11 +78,18 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-# The multi-function units (exp2, reciprocal): 16 results a clock on each of
-# the 132 SMs (CUDA C++ Programming Guide, arithmetic instruction
-# throughput, compute capability 9.0), at the 1.98 GHz boost clock behind
-# the peaks above (67 TFLOP/s = 132 SMs x 128 FMA x 2 x 1.98 GHz).
-MUFU_PER_S = 132 * 16 * 1.98e9
+# One SM's issue rates (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0): 32-bit integer multiplies (the IMAD
+# pipe, mul.lo and mul.hi) 64 a clock, multi-function-unit results (exp2,
+# log2, reciprocal, sqrt, sin, cos) 16 a clock; at the 1.98 GHz boost clock
+# behind the peaks above (67 TFLOP/s = 132 SMs x 128 FMA x 2 x 1.98 GHz).
+SM_COUNT = 132
+SM_CLOCK_HZ = 1.98e9
+IMAD_PER_CLOCK = 64
+MUFU_PER_CLOCK = 16
+MUFU_PER_S = SM_COUNT * MUFU_PER_CLOCK * SM_CLOCK_HZ
+# Philox4x32-10: 2 mul.lo and 2 mul.hi a round, 10 rounds
+PHILOX_MULS = 40
 # csrc/lstm_fused.cu's cell update per (row, unit, step): 5 exp2 (the
 # sigmoids of i, f, o, tanh of g and of c) and 3 reciprocals
 LSTM_MUFU_PER_CELL = 8
@@ -164,6 +175,16 @@ LSTM_LIB_TOL = 1e-4
 MNIST_CELLS = (("LSTM", "pmp", 300), ("LSTM", "mp", 300), ("LSTM", "mh", 600),
                ("FC", "pmp", 600))
 MNIST_PROFILE = 5  # supersteps in each profiler trace of phase 10
+# phase 6's P sweep of the binary kernel on the benchmark cell's data: one
+# SWEEP_STEPS-superstep launch per depth, emit="root" at depths 1-10 and
+# emit="all" at 1-9 (its 512-lane cap), each timed over SWEEP_REPS
+SWEEP_ROOT_DEPTHS = tuple(range(1, 11))
+SWEEP_ALL_DEPTHS = tuple(range(1, 10))
+SWEEP_STEPS = 1000
+SWEEP_REPS = 5
+# the binary kernel's two instantiations, by their mangled names
+BINARY_KERNELS = {"chain_binary_kernelILb0E": "chain_binary_kernel<false>",
+                  "chain_binary_kernelILb1E": "chain_binary_kernel<true>"}
 
 
 class Phase:
@@ -218,52 +239,67 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def chain_ops(P: int, depth: int, steps: int, n_slots: int) -> float:
-    """f32 operations of one fused_chain launch, counted from the kernel
-    (a transcendental counts as one): per node and superstep, Box-Muller
-    3 x 7, positions 3 adds per set bit (depth/2 on average), log-density
-    15, walk 7 per level, weights, scan and count 4; per launch, 8 per data
-    slot for the statistics."""
-    per_node = 21 + 1.5 * depth + 15 + 7 * depth + 4
-    return P * steps * per_node + 8 * n_slots
+def chain_sm_bound(mode: str, emit: str, P: int, steps: int, n_data: int,
+                   *, N: int = 1, depth: int = 1, rng: str = "kernel",
+                   chains: int = 1) -> dict:
+    """The least time of one fused_chain launch of ``steps`` supersteps
+    over ``n_data`` points.
 
+    A chain is one block, and a block lives on one SM, so a chain's issue
+    work meets one SM's rates, not the whole card's; a farm of C chains
+    runs ceil(C / 132) waves of one chain each per SM.  The floor is the
+    largest of three times over the launch, each fixed by the random
+    stream and the math, not by the kernel's design:
 
-def chain_mp_ops(P: int, steps: int, n_slots: int) -> float:
-    """f32 operations of one fused_chain_mp launch, counted from the
-    kernel (a transcendental counts as one): per node and superstep,
-    Box-Muller 3 x 7, position 3, log-density 15, the MTM weight 26
-    (|S|^2 5, its share of the 4 block sums 4, S.G 5, the distance 4, the
-    weight 2, max 1, exp-sum 2, log-softmax 3), weights, scan and count 4;
-    per launch, 8 per data slot for the statistics."""
-    per_node = 21 + 3 + 15 + 26 + 4
-    return P * steps * per_node + 8 * n_slots
+    - ``imad``: Philox4x32-10's PHILOX_MULS = 40 multiplies a call at
+      IMAD_PER_CLOCK = 64 a clock on the chain's SM.  emit="root" draws 2
+      calls per node (u1, u2) and 1 per superstep (usel): 80 P + 40
+      multiplies a superstep; emit="all" adds the slot uniform, 1 call per
+      node: 120 P + 40.  With injected uniforms (``rng="input"``) there
+      are none; the uniforms count as bytes instead.
+    - ``mufu``: multi-function results at MUFU_PER_CLOCK = 16 a clock on
+      the chain's SM.  Per node: Box-Muller's 3 x (log, sqrt, cos) 9, the
+      log-density's log 1, the weight's exp 1.  The walk: binary 2 per
+      sibling pair (the exp and the log1p of its softplus), 2 (P - 1); mp
+      the log-sum-exp's exp per node and its log once, P + 1; general per
+      level i the exp of each of the base^(i+1) level nodes and the log of
+      each of the base^i group totals.  Divisions are not counted (a
+      constant's reciprocal is one result a launch, and the log-density's
+      is left out of the floor).
+    - ``bytes``: the data's x and y read once (2 n floats, what the
+      statistics pass needs; not the padded grid), and per chain its seed
+      and states (7 floats) and what each superstep writes (the trace's 4
+      floats, emit="all" 8 and the P emitted b0) and, with injected
+      uniforms, reads (6 floats a node and usel, emit="all" 1 more a
+      node), at the whole card's memory rate PEAK_BYTES_PER_S: a floor,
+      since no share of the card moves bytes faster, though one SM alone
+      draws less.
 
-
-def chain_general_ops(N: int, depth: int, steps: int, n_slots: int) -> float:
-    """f32 operations of one fused_chain_general launch, counted from the
-    kernel: per node and superstep, Box-Muller 3 x 7, positions 3 per
-    nonzero digit (depth (1 - 1/base) on average) and 3 for theta,
-    log-density 15, |S|^2 5, weights, scan and count 4; per level i, each
-    of the m_i = base^(i+1) nodes of the level adds 9 per sibling for the
-    group sums and 14 for its weight, max and exp (base 6 + 3 more per
-    sibling than a count of the sums alone: the squares are recomputed), and
-    every node adds base + 5 for its group total and level factor; per
-    launch, 8 per data slot."""
-    base = N + 1
-    P = base**depth
-    per_node = 21 + 3 * depth * (1 - 1 / base) + 3 + 15 + 5 + 4
-    levels = sum(base ** (i + 1) * (9 * base + 14) for i in range(depth))
-    levels += P * depth * (base + 5)
-    return steps * (P * per_node + levels) + 8 * n_slots
-
-
-def emit_ops(P: int, steps: int) -> float:
-    """The f32 operations emit="all" adds to a chain launch, per slot and
-    superstep: a binary search of the cdf (2 log2 P compares and index
-    steps), its threshold 1, the jump from the previous slot 9 (3
-    differences, 3 squares, 2 adds, the block sum's add); the 3P gathers
-    and P stored floats are bytes, counted by the caller."""
-    return steps * P * (2.0 * math.log2(P) + 1 + 9)
+    Returns the bound in ms, ``bound_by`` (the largest term: "imad",
+    "mufu" or "bytes") and each term's ms.
+    """
+    base = N + 1 if mode != "binary" else 2
+    all_ = emit == "all"
+    calls = (3 if all_ else 2) * P + 1
+    if mode == "binary":
+        walk = 2 * (P - 1)
+    elif mode == "mp":
+        walk = P + 1
+    else:
+        walk = sum(base ** (i + 1) + base**i for i in range(depth))
+    clocks = {
+        "imad": (0.0 if rng == "input" else
+                 calls * PHILOX_MULS / IMAD_PER_CLOCK),
+        "mufu": (11 * P + walk) / MUFU_PER_CLOCK,
+    }
+    waves = -(-chains // SM_COUNT)
+    ms = {k: waves * steps * c / SM_CLOCK_HZ * 1e3 for k, c in clocks.items()}
+    step_floats = ((8 + P) if all_ else 4) + (
+        ((7 if all_ else 6) * P + 1) if rng == "input" else 0)
+    nbytes = 4.0 * (2 * n_data + chains * (7 + steps * step_floats))
+    ms["bytes"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": by, "ms": ms}
 
 
 def lstm_fused_bound(P: int = 8, B: int = 60_000, T: int = 28, F: int = 28,
@@ -329,6 +365,66 @@ def lstm_sass_mma(so: Path) -> dict:
                 break
     return {k: {**v, "opcodes": sorted(v["opcodes"])}
             for k, v in counts.items()}
+
+
+def ptxas_usage(log: str, names: dict[str, str]) -> dict:
+    """Registers and static shared memory that ``ptxas -v`` reported for
+    each entry function whose mangled name holds a key of ``names``,
+    under that key's label: {label: {"registers": r, "smem_bytes": s}}."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = next((lab for frag, lab in names.items()
+                       if frag in m.group(1)), None)
+        elif fn and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[fn] = {"registers": int(regs.group(1)) if regs else None,
+                       "smem_bytes": int(smem.group(1)) if smem else 0}
+            fn = None
+    return out
+
+
+def binary_p_sweep(target, theta, seed) -> dict:
+    """The binary kernel's time per superstep against P on ``target``: one
+    SWEEP_STEPS-superstep launch per depth (emit="root" at
+    SWEEP_ROOT_DEPTHS, emit="all" at SWEEP_ALL_DEPTHS), in-kernel Philox,
+    step 0.02, each timed over SWEEP_REPS launches.  A linear fit of µs per
+    superstep against P per emit: the intercept is the latency floor of a
+    superstep, the slope the issue cost of one more node."""
+    from pmpx_torch.kernels import fused_chain as fc
+
+    rows = []
+    for emit, depths in (("root", SWEEP_ROOT_DEPTHS),
+                         ("all", SWEEP_ALL_DEPTHS)):
+        for d in depths:
+            P_d = 2**d
+
+            def run(emit=emit, P_d=P_d, d=d):
+                return fc.chain_chunk(
+                    target.x2d, target.y2d, theta, steps=SWEEP_STEPS,
+                    seed=seed, emit=emit, P=P_d, depth=d,
+                    n_data=float(target.n), temper=float(target.temper),
+                    step_size=0.02)
+
+            cb = chain_sm_bound("binary", emit, P_d, SWEEP_STEPS, target.n,
+                                depth=d)
+            row = {"emit": emit, "depth": d, "P": P_d,
+                   "us": event_ms(run, SWEEP_REPS) * 1e3 / SWEEP_STEPS,
+                   "bound_us": cb["bound_ms"] * 1e3 / SWEEP_STEPS,
+                   "bound_by": cb["bound_by"]}
+            rows.append(row)
+            print(f"P sweep {emit} P={P_d}: {row['us']:.6g} µs per superstep "
+                  f"(bound {row['bound_us']:.6g}, {row['bound_by']})")
+    fits = {}
+    for emit in ("root", "all"):
+        sel = [r for r in rows if r["emit"] == emit]
+        slope, icpt = np.polyfit([r["P"] for r in sel],
+                                 [r["us"] for r in sel], 1)
+        fits[emit] = {"intercept_us": float(icpt),
+                      "ns_per_node": float(slope) * 1e3}
+    return {"rows": rows, "fits": fits}
 
 
 def chain_vs_plain(fc, label, target, theta0, consts, seed, steps=100,
@@ -419,6 +515,11 @@ def main() -> int:
         for line in built.log.splitlines():
             if "ptxas" in line or "spill" in line or "Used" in line:
                 print("  " + line.strip())
+        usage = ptxas_usage(built.log, BINARY_KERNELS)
+        for label in BINARY_KERNELS.values():
+            require(label in usage, f"ptxas reported {label}")
+            print(f"{label}: {usage[label]['registers']} registers, "
+                  f"{usage[label]['smem_bytes']} bytes of shared memory")
         # the gate products of lstm_fused on the tensor cores: TF32 HGMMA
         # (wgmma) in the f32 instantiation, BF16 HMMA (mma.sync) in bf16
         mma = lstm_sass_mma(built.path)
@@ -710,17 +811,21 @@ def main() -> int:
             x2d, y2d, th0, steps=chunk, uin=uin1, **consts), 5)
         plain_ms = event_ms(lambda: fc.fused_chain_ref(
             x2d, y2d, th0, uin1, **consts), 1)
-        nbytes = 4.0 * (2 * n_slots + 4 * chunk + 6 + 1)
-        b_ms, b_by = bound(chain_ops(P, depth, chunk, n_slots), nbytes)
+        cb = chain_sm_bound("binary", "root", P, chunk, target.n, depth=depth)
+        cbi = chain_sm_bound("binary", "root", P, chunk, target.n,
+                             depth=depth, rng="input")
         kernels.append({
             "name": "fused_chain", "route": "cuda",
             "source": "pmpx_torch/csrc/fused_chain.cu",
             "replaces": "pmpx/kernels/fused_chain.py:184",
             "launches": fused_counts["fused_chain"],
             "max_abs_err": mode_err["binary"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-            "ms_rng_input": ms_input, "steps_per_launch": chunk, "P": P,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": cb["bound_ms"],
+            "bound_by": cb["bound_by"], "library_ms": None,
+            "ms_rng_input": ms_input,
+            "bound_ms_rng_input": cbi["bound_ms"],
+            "bound_by_rng_input": cbi["bound_by"],
+            "steps_per_launch": chunk, "P": P,
         })
         # fused_chain_mp and fused_chain_general: one launch of the same
         # chunk at the grid's flat P = 1024 and conv_pmp's P = 512 tree
@@ -738,24 +843,25 @@ def main() -> int:
                 x2d, y2d, th0, steps=chunk, uin=u, **kw), 5)
             plain_ms = event_ms(lambda kw=kw, u=uin_k: fc.fused_chain_ref(
                 x2d, y2d, th0, u, **kw), 1)
-            ops = (chain_mp_ops(kw["P"], chunk, n_slots) if mode == "mp"
-                   else chain_general_ops(N_k, d_k, chunk, n_slots))
-            b_ms, b_by = bound(ops, nbytes)
+            cb, cbi = (chain_sm_bound(mode, "root", kw["P"], chunk, target.n,
+                                      N=N_k, depth=d_k, rng=r)
+                       for r in ("kernel", "input"))
             kernels.append({
                 "name": kname, "route": "cuda",
                 "source": "pmpx_torch/csrc/fused_chain.cu",
                 "replaces": "pmpx/kernels/fused_chain.py:184",
                 "launches": None,  # from the time grid, phase 7
                 "max_abs_err": mode_err[mode],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None,
-                "ms_rng_input": ms_input, "steps_per_launch": chunk,
-                "P": kw["P"],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": cb["bound_ms"],
+                "bound_by": cb["bound_by"], "library_ms": None,
+                "ms_rng_input": ms_input,
+                "bound_ms_rng_input": cbi["bound_ms"],
+                "bound_by_rng_input": cbi["bound_by"],
+                "steps_per_launch": chunk, "P": kw["P"],
             })
         # emit="all" at the ESS protocol's largest P = 512, one
         # 1000-superstep launch on its target, beside emit="root" at the
         # same shape
-        et_slots = et.x2d.numel()
         steps_e = 1000
         for kname, N_k, d_k in (("fused_chain_all", 1, 9),
                                 ("fused_chain_mp_all", 511, 1),
@@ -780,27 +886,22 @@ def main() -> int:
             plain_ms = event_ms(lambda kw=kw, u=uin_k, e=uem_k:
                                 fc.fused_chain_ref(et.x2d, et.y2d, th0, u,
                                                    uemit=e, **kw), 1)
-            if kw["mode"] == "binary":
-                ops = chain_ops(P_k, d_k, steps_e, et_slots)
-            elif kw["mode"] == "mp":
-                ops = chain_mp_ops(P_k, steps_e, et_slots)
-            else:
-                ops = chain_general_ops(N_k, d_k, steps_e, et_slots)
-            ops += emit_ops(P_k, steps_e)
-            # grids read once; per superstep the 8-row trace and P emitted
-            # b0 written; the seed and states
-            nbytes = 4.0 * (2 * et_slots + (8 + P_k) * steps_e + 6 + 1)
-            b_ms, b_by = bound(ops, nbytes)
+            cb, cbi = (chain_sm_bound(kw["mode"], "all", P_k, steps_e,
+                                      et.n, N=N_k, depth=d_k, rng=r)
+                       for r in ("kernel", "input"))
             kernels.append({
                 "name": kname, "route": "cuda",
                 "source": "pmpx_torch/csrc/fused_chain.cu",
                 "replaces": "pmpx/kernels/fused_chain.py:348",
                 "launches": None,  # from the ESS protocol, phase 9
                 "max_abs_err": emit_err[kw["mode"]],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None,
-                "ms_rng_input": ms_input, "ms_emit_root": ms_root,
-                "steps_per_launch": steps_e, "P": P_k,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": cb["bound_ms"],
+                "bound_by": cb["bound_by"], "library_ms": None,
+                "ms_rng_input": ms_input,
+                "bound_ms_rng_input": cbi["bound_ms"],
+                "bound_by_rng_input": cbi["bound_by"],
+                "ms_emit_root": ms_root, "steps_per_launch": steps_e,
+                "P": P_k,
             })
 
         # the farm: ESS_CHAINS chains of binary P = 512 in one
@@ -817,9 +918,8 @@ def main() -> int:
         plain_ms = event_ms(lambda: [fc.fused_chain_ref(
             et.x2d, et.y2d, thC[c], uinC[c], **kw)
             for c in range(ESS_CHAINS)], 1, warmup=False)
-        ops = ESS_CHAINS * chain_ops(512, 9, steps_e, 0) + 8 * et_slots
-        nbytes = 4.0 * (2 * et_slots + ESS_CHAINS * (4 * steps_e + 6 + 1))
-        b_ms, b_by = bound(ops, nbytes)
+        cb = chain_sm_bound("binary", "root", 512, steps_e, et.n,
+                            depth=9, chains=ESS_CHAINS)
         kernels.append({
             "name": "fused_chain_farm", "route": "cuda",
             "source": "pmpx_torch/csrc/fused_chain.cu",
@@ -827,8 +927,8 @@ def main() -> int:
             "farm_of": "pmpx/parallel/chains.py:83",
             "launches": None,  # from the ESS protocol's farm cell, phase 9
             "max_abs_err": farm_err,  # against plain, phase 3e
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": cb["bound_ms"],
+            "bound_by": cb["bound_by"], "library_ms": None,
             "steps_per_launch": steps_e, "P": 512, "chains": ESS_CHAINS,
         })
 
@@ -851,6 +951,12 @@ def main() -> int:
                       f"{C * steps_e / (ms * 1e-3):.6g} supersteps/s")
         print(json.dumps({"farm_throughput": farm_curve, "device": name,
                           "power": smi}))
+
+        # the binary kernel's µs per superstep against P on the benchmark
+        # cell's data
+        sweep = binary_p_sweep(target, th0, seed)
+        print(json.dumps({"p_sweep": sweep["rows"], "fits": sweep["fits"],
+                          "device": name, "power": smi}))
 
         # lstm_fused at the MNIST protocol's P = 8 over the 60,000 images,
         # beside P calls of cuDNN's LSTM with the same weights (bias_ih 0,

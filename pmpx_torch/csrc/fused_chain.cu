@@ -51,12 +51,16 @@
 // exact in algebra and keeps P |S|^2 - 2 S.G + Q from cancelling in f32 at
 // P = 1024, where the TPU kernel's |Y|^2 form loses digits.
 //
-// What bounds it on the H100: neither bytes nor operations.  One chain is
-// one dependent sequence of supersteps; a superstep is a few hundred
-// kFLOP, well under a microsecond at any peak.  Its time is latency:
-// transcendentals, shared-memory round trips and block barriers, paid
-// once per superstep on one SM.  A farm puts one chain on each block, so
-// that up to 132 SMs (and more blocks per SM at small P) run at once.
+// What bounds it on the H100: one chain is one dependent sequence of
+// supersteps in one block, so it runs on one SM, and its floor is that
+// SM's issue rate for the work the random stream and the math fix:
+// Philox's 40 integer multiplies a call (2 calls a node for emit="root",
+// 3 for "all") at 64 a clock, which binds before the multi-function
+// unit's ~13 results a node at 16 a clock (chip_smoke.py's
+// chain_sm_bound).  At small P a superstep's time is latency instead: its
+// dependent transcendentals, shared-memory round trips and block
+// barriers.  A farm puts one chain on each block, so that up to 132 SMs
+// (and more blocks per SM at small P) run at once.
 //
 // Design: one thread block per chain, one tree node per thread (blockDim
 // = L = P rounded up to 128, at most 1024).  The innovations and the
@@ -79,9 +83,10 @@
 // L <= 512, emit="all"'s cap (pmpx's supports()).  Barriers per
 // superstep, counted from the code: 4 shared (the draw, the weights'
 // max and scan, then the count of emit="root" or the positions of
-// emit="all"), plus binary 1, mp 3, general 1 + 2 depth; emit="all" adds
-// 2 (the draws, the jump sum).  emit="root": binary 5, mp 7, general
-// 5 + 2 depth; emit="all": binary 7, mp 9, general 7 + 2 depth.
+// emit="all"), plus binary 2 (the log-densities, the pairs' terms), mp 3,
+// general 1 + 2 depth; emit="all" adds 2 (the draws, the jump sum).
+// emit="root": binary 6, mp 7, general 5 + 2 depth; emit="all": binary
+// 8, mp 9, general 7 + 2 depth.
 // Uniforms come either from an in-kernel Philox4x32-10 keyed by a
 // per-chunk seed, or (the testable path) from 17 injected rows of L lanes
 // per superstep, laid out as pmpx's rng="input": rows 0-7 u1, rows 8-15
@@ -133,9 +138,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// jax.nn.log_sigmoid(d) = -softplus(-d).
-__device__ __forceinline__ float log_sigmoid(float d) {
-  return -(fmaxf(-d, 0.f) + log1pf(expf(-fabsf(d))));
+// jax.nn.log_sigmoid(d) = -softplus(-d) = -(max(-d, 0) + sp), given
+// sp = log1pf(expf(-|d|)), which d and -d share.
+__device__ __forceinline__ float log_sigmoid(float d, float sp) {
+  return -(fmaxf(-d, 0.f) + sp);
 }
 
 // Sums of K values over the block in a fixed order, one barrier; every
@@ -449,10 +455,27 @@ __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
   if (x < 3) a.theta_out[x] = s_theta[a.steps & 1][x];
 }
 
-// Binary tree: the Barker walk up the ancestors.
+// Binary tree: the Barker walk up the ancestors.  Level i's sibling
+// pairs are (a, a + 2^i) for a < 2^i, P - 1 pairs over all levels.  Thread
+// x in [1, P) takes the pair whose upper sibling is x (level i = log2 x):
+// it evaluates the pair's softplus once and stores both siblings'
+// log-sigmoid in ls; then every node sums its depth terms from ls, level 0
+// first.  One transcendental pair per sibling pair instead of one per
+// (node, level): P - 1 instead of P depth.
+//
+// logA stays bit for bit what the per-node walk gave, which evaluated
+// -(fmaxf(-d', 0) + log1pf(expf(-|d'|))) for d' = lp[a_i] - lp[a_i ^ 2^i]
+// at every level and summed the terms in level order from 0: for a pair
+// (a, b), d = lp[a] - lp[b] and lp[b] - lp[a] is exactly -d (IEEE
+// subtraction rounds the same either way round), so both siblings'
+// log1pf(expf(-|d'|)) is the one value sp, and log_sigmoid(d, sp) and
+// log_sigmoid(-d, sp) are each sibling's own operations on the same
+// operands.  The sums then add the same terms in the same order.
 struct BinaryWalk {
   int depth;
   float* lp;  // [kMaxL] log-densities
+  float* ls;  // [2 kMaxL - 2] log-sigmoid terms: level i's node v < 2^(i+1)
+              // at (2 << i) - 2 + v
 
   __device__ __forceinline__ void offset(int x, float (*eps)[kMaxL],
                                          float (&S)[3]) const {
@@ -471,11 +494,20 @@ struct BinaryWalk {
                                               float logpi) const {
     lp[x] = logpi;
     __syncthreads();
+    if (x > 0 && x < (1 << depth)) {
+      const int i = 31 - __clz(x);
+      const int lo = x - (1 << i);
+      const float d = lp[lo] - lp[x];
+      const float sp = log1pf(expf(-fabsf(d)));
+      float* row = ls + (2 << i) - 2;
+      row[lo] = log_sigmoid(d, sp);
+      row[x] = log_sigmoid(-d, sp);
+    }
+    __syncthreads();
     float logA = 0.f;
     if (valid) {
       for (int i = 0; i < depth; ++i) {
-        const int anc = x & ((2 << i) - 1);
-        logA += log_sigmoid(lp[anc] - lp[anc ^ (1 << i)]);
+        logA += ls[(2 << i) - 2 + (x & ((2 << i) - 1))];
       }
     }
     return logA;
@@ -587,7 +619,8 @@ template <bool kAll>
 __global__ void __launch_bounds__(kAll ? kMaxEmitL : kMaxL)
 chain_binary_kernel(ChainArgs a, int depth) {
   __shared__ float s_lp[kMaxL];
-  chain_loop<kAll>(a, BinaryWalk{depth, s_lp});
+  __shared__ float s_ls[2 * kMaxL - 2];
+  chain_loop<kAll>(a, BinaryWalk{depth, s_lp, s_ls});
 }
 
 template <bool kAll>

@@ -51,7 +51,7 @@ def test_linreg_rss_kernel_matches_plain(cuda, P, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [2, 3, 7, 10])  # 2: lanes above P
+@pytest.mark.parametrize("depth", range(1, 11))  # 1-6: lanes above P
 def test_fused_chain_kernel_matches_plain(cuda, depth):
     g = torch.Generator(device=cuda)
     g.manual_seed(depth)
@@ -150,9 +150,10 @@ def test_fused_chain_new_modes_kernel_rng_is_seeded(cuda, N, depth):
     assert bool(torch.isfinite(a).all())
 
 
-# emit="all": binary P = 8 and 512, flat MP P = 8 and 512 (N = P - 1),
-# general (3, 2) and (7, 3); all within the 512-lane cap
-EMIT_MODES = [(1, 3), (1, 9), (7, 1), (511, 1), (3, 2), (7, 3)]
+# emit="all": binary P = 2, 8, 32 and 512, flat MP P = 8 and 512
+# (N = P - 1), general (3, 2) and (7, 3); all within the 512-lane cap
+EMIT_MODES = [(1, 1), (1, 3), (1, 5), (1, 9), (7, 1), (511, 1), (3, 2),
+              (7, 3)]
 
 
 @pytest.mark.gpu
@@ -186,6 +187,36 @@ def test_fused_chain_emit_all_matches_plain(cuda, N, depth):
     assert out["b0_root_equal"]
     assert torch.equal(out["trace"][:3, -1], out["theta"].cpu())
     assert len(set(out["trace"][0].tolist())) > 1  # the chain moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit", ["root", "all"])
+@pytest.mark.parametrize("N,depth", [(1, 9), (511, 1), (7, 3)])
+def test_fused_chain_second_launch_is_bit_equal(cuda, N, depth, emit):
+    """Each mode's kernel, launched twice on the same injected uniforms
+    and state, returns the same trace, state and emitted b0 bit for bit
+    (fixed-order reductions, no atomics)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(N + depth)
+    x, y = make_synthetic_linreg(g, 20_000)
+    t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    kw = fc.chain_consts(t, PMPConfig(N=N, depth=depth, step_size=0.05,
+                                      trans_sigma=0.8))
+    steps, L = 60, fc.lane_extent(kw["P"])
+    uin = 1.0 - torch.rand((steps * fc.U_ROWS, L), generator=g, device=cuda)
+    extra = {}
+    if emit == "all":
+        extra = dict(emit="all", uemit=1.0 - torch.rand(
+            (steps, L), generator=g, device=cuda))
+    th = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    first = fc.chain_chunk(t.x2d, t.y2d, th, steps=steps, uin=uin, **kw,
+                           **extra)
+    second = fc.chain_chunk(t.x2d, t.y2d, th, steps=steps, uin=uin, **kw,
+                            **extra)
+    assert len(first) == (3 if emit == "all" else 2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert len(set(first[0][0].tolist())) > 1  # the chain moved
 
 
 @pytest.mark.gpu
