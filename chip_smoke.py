@@ -11,8 +11,9 @@ Phases, each printing its wall time:
 0. the card, its power limit, the torch and nvcc versions;
 1. the kernels' build (``nvcc`` into ``pmpx_torch/_build/``), with the
    registers, shared memory and spills ``ptxas`` reports (and, by name,
-   those of ``chain_binary_kernel<false>`` and ``<true>``), and the
-   tensor-core instructions in ``lstm_fused_kernel``'s SASS (``cuobjdump``);
+   those of every chain kernel: ``chain_{binary,mp}_kernel<kAll>`` and
+   ``chain_general_kernel<kAll, depth>``), and the tensor-core instructions in
+   ``lstm_fused_kernel``'s SASS (``cuobjdump``);
 2. ``linreg_rss`` against its plain version at the shapes the sweep
    paths give it;
 3. ``fused_chain`` (injected uniforms) against its plain version, step by
@@ -34,8 +35,10 @@ Phases, each printing its wall time:
    floor one SM can meet, :func:`chain_sm_bound`), ``lstm_fused``'s beside P
    calls of cuDNN's LSTM (its bf16 weights flattened by hand, and as torch
    leaves them) and its tensor-core and transcendental bounds, the farm's
-   supersteps per second against its chain count, and the binary chain
-   kernel's µs per superstep against P (:func:`binary_p_sweep`);
+   supersteps per second against its chain count, each chain kernel's
+   µs per superstep against P (:func:`chain_p_sweep`), and where a
+   superstep's clocks go, phase by phase, in the stamped chain library
+   (:func:`stamp_splits`);
 7. the time grid of the reference (``pmpx_torch.experiments.
    time_analysis``) at full width on both paths, with a posterior check of
    a flat-MP and a general fused chain;
@@ -103,8 +106,10 @@ FUSED_BURN = 10_000  # of bench.FUSED_ITERS = 100,000
 
 # phase 3b: (N, depth) of the flat-MP and general modes; the grid's flat
 # P = 4 and P = 1024, P = 200 (lanes above P), conv_pmp's N = 7 x depth 3
-# (P = 512) and the largest base the general kernel takes at P = 1024
-NEW_MODES = ((3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2))
+# (P = 512), the largest base the general kernel takes at P = 1024, and
+# its depths 4 and 5 (each depth is its own instantiation)
+NEW_MODES = ((3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2), (3, 4),
+             (3, 5))
 # phase 2: (P, n) of linreg_rss: the bench cell's P = 1024 and the time
 # grid's P = 4 (padded to 8) and P = 1024 at n = 500 and 100,000; P = 200
 # and P = 8 at other sizes; the ESS protocol's sweep cells, P = 512 and 8
@@ -175,16 +180,32 @@ LSTM_LIB_TOL = 1e-4
 MNIST_CELLS = (("LSTM", "pmp", 300), ("LSTM", "mp", 300), ("LSTM", "mh", 600),
                ("FC", "pmp", 600))
 MNIST_PROFILE = 5  # supersteps in each profiler trace of phase 10
-# phase 6's P sweep of the binary kernel on the benchmark cell's data: one
-# SWEEP_STEPS-superstep launch per depth, emit="root" at depths 1-10 and
-# emit="all" at 1-9 (its 512-lane cap), each timed over SWEEP_REPS
-SWEEP_ROOT_DEPTHS = tuple(range(1, 11))
-SWEEP_ALL_DEPTHS = tuple(range(1, 10))
+# phase 6's P sweeps on the benchmark cell's data: one SWEEP_STEPS-superstep
+# launch per (N, depth), each timed over SWEEP_REPS, emit="all" up to its
+# 512-lane cap.  binary: depths 1-10 (all 1-9); flat MP: P = 4 ... 1024
+# (all ... 512); general: N = 3 at depths 1-5 (all 1-4) and N = 7 at 1-3
+# (depth 1 is the flat-MP kernel at P = N + 1)
+SWEEP_SHAPES = {
+    "binary": [(1, d) for d in range(1, 11)],
+    "mp": [(2**k - 1, 1) for k in range(2, 11)],
+    "general": [(3, d) for d in range(1, 6)] + [(7, d) for d in range(1, 4)],
+}
 SWEEP_STEPS = 1000
 SWEEP_REPS = 5
-# the binary kernel's two instantiations, by their mangled names
-BINARY_KERNELS = {"chain_binary_kernelILb0E": "chain_binary_kernel<false>",
-                  "chain_binary_kernelILb1E": "chain_binary_kernel<true>"}
+# phase 6's phase clocks (the stamped library): (mode, emit, N, depth) of
+# mp root P = 1024 and all P = 512, general 7 x 3 root and all, binary root
+# P = 1024 and all P = 512, and, where a superstep is one dependent chain's
+# latency, binary, mp and general root at P = 8, 8 and 16; one
+# SWEEP_STEPS-superstep launch each
+STAMP_CELLS = (("mp", "root", 1023, 1), ("mp", "all", 511, 1),
+               ("general", "root", 7, 3), ("general", "all", 7, 3),
+               ("binary", "root", 1, 10), ("binary", "all", 1, 9),
+               ("binary", "root", 1, 3), ("mp", "root", 7, 1),
+               ("general", "root", 3, 2))
+# a chain kernel's instantiation in a mangled name: its mode, kAll and, for
+# the general kernel, its depth
+CHAIN_KERNEL = re.compile(
+    r"chain_(binary|mp|general)_kernelILb([01])E(?:Li(\d+)E)?")
 
 
 class Phase:
@@ -261,9 +282,10 @@ def chain_sm_bound(mode: str, emit: str, P: int, steps: int, n_data: int,
       the chain's SM.  Per node: Box-Muller's 3 x (log, sqrt, cos) 9, the
       log-density's log 1, the weight's exp 1.  The walk: binary 2 per
       sibling pair (the exp and the log1p of its softplus), 2 (P - 1); mp
-      the log-sum-exp's exp per node and its log once, P + 1; general per
-      level i the exp of each of the base^(i+1) level nodes and the log of
-      each of the base^i group totals.  Divisions are not counted (a
+      none (its log-sum-exp shifts every logA alike and cancels in the
+      weights exp(lw - max lw)); general per level i the exp of each of
+      the base^(i+1) level nodes and the log of each of the base^i group
+      totals.  Divisions are not counted (a
       constant's reciprocal is one result a launch, and the log-density's
       is left out of the floor).
     - ``bytes``: the data's x and y read once (2 n floats, what the
@@ -284,7 +306,7 @@ def chain_sm_bound(mode: str, emit: str, P: int, steps: int, n_data: int,
     if mode == "binary":
         walk = 2 * (P - 1)
     elif mode == "mp":
-        walk = P + 1
+        walk = 0
     else:
         walk = sum(base ** (i + 1) + base**i for i in range(depth))
     clocks = {
@@ -367,64 +389,121 @@ def lstm_sass_mma(so: Path) -> dict:
             for k, v in counts.items()}
 
 
-def ptxas_usage(log: str, names: dict[str, str]) -> dict:
+def ptxas_usage(log: str) -> dict:
     """Registers and static shared memory that ``ptxas -v`` reported for
-    each entry function whose mangled name holds a key of ``names``,
-    under that key's label: {label: {"registers": r, "smem_bytes": s}}."""
+    each chain kernel instantiation (CHAIN_KERNEL), under a readable label
+    such as ``chain_general_kernel<true, 3>``: {label: {"registers": r,
+    "smem_bytes": s}}."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            fn = next((lab for frag, lab in names.items()
-                       if frag in m.group(1)), None)
+            k = CHAIN_KERNEL.search(m.group(1))
+            fn = None if k is None else (
+                f"chain_{k.group(1)}_kernel<{('false', 'true')[int(k.group(2))]}"
+                + (f", {k.group(3)}>" if k.group(3) else ">"))
         elif fn and "Used" in line:
             regs = re.search(r"Used (\d+) registers", line)
             smem = re.search(r"(\d+) bytes smem", line)
             out[fn] = {"registers": int(regs.group(1)) if regs else None,
                        "smem_bytes": int(smem.group(1)) if smem else 0}
             fn = None
-    return out
+    return dict(sorted(out.items()))
 
 
-def binary_p_sweep(target, theta, seed) -> dict:
-    """The binary kernel's time per superstep against P on ``target``: one
-    SWEEP_STEPS-superstep launch per depth (emit="root" at
-    SWEEP_ROOT_DEPTHS, emit="all" at SWEEP_ALL_DEPTHS), in-kernel Philox,
-    step 0.02, each timed over SWEEP_REPS launches.  A linear fit of µs per
-    superstep against P per emit: the intercept is the latency floor of a
-    superstep, the slope the issue cost of one more node."""
+def chain_p_sweep(target, theta, seed) -> dict:
+    """Each chain kernel's time per superstep against P on ``target``: one
+    SWEEP_STEPS-superstep launch per SWEEP_SHAPES entry and emit (emit="all"
+    up to its 512-lane cap), in-kernel Philox, step 0.02, transition sigma
+    1, each timed over SWEEP_REPS launches, beside :func:`chain_sm_bound`.
+    A linear fit of µs per superstep against P per series (binary and flat
+    MP per emit, general per N and emit): the intercept is the latency
+    floor of a superstep, the slope what one more node's instructions
+    cost."""
     from pmpx_torch.kernels import fused_chain as fc
 
     rows = []
-    for emit, depths in (("root", SWEEP_ROOT_DEPTHS),
-                         ("all", SWEEP_ALL_DEPTHS)):
-        for d in depths:
-            P_d = 2**d
+    for family, shapes in SWEEP_SHAPES.items():
+        for emit in ("root", "all"):
+            for N, d in shapes:
+                P_d = (N + 1) ** d
+                if emit == "all" and fc.lane_extent(P_d) > fc.EMIT_MAX_L:
+                    continue
+                mode = "binary" if N == 1 else "mp" if d == 1 else "general"
+                kw = dict(P=P_d, depth=d, n_data=float(target.n),
+                          temper=float(target.temper), step_size=0.02,
+                          mode=mode, N=N)
 
-            def run(emit=emit, P_d=P_d, d=d):
-                return fc.chain_chunk(
-                    target.x2d, target.y2d, theta, steps=SWEEP_STEPS,
-                    seed=seed, emit=emit, P=P_d, depth=d,
-                    n_data=float(target.n), temper=float(target.temper),
-                    step_size=0.02)
+                def run(emit=emit, kw=kw):
+                    return fc.chain_chunk(target.x2d, target.y2d, theta,
+                                          steps=SWEEP_STEPS, seed=seed,
+                                          emit=emit, **kw)
 
-            cb = chain_sm_bound("binary", emit, P_d, SWEEP_STEPS, target.n,
-                                depth=d)
-            row = {"emit": emit, "depth": d, "P": P_d,
-                   "us": event_ms(run, SWEEP_REPS) * 1e3 / SWEEP_STEPS,
-                   "bound_us": cb["bound_ms"] * 1e3 / SWEEP_STEPS,
-                   "bound_by": cb["bound_by"]}
-            rows.append(row)
-            print(f"P sweep {emit} P={P_d}: {row['us']:.6g} µs per superstep "
-                  f"(bound {row['bound_us']:.6g}, {row['bound_by']})")
+                cb = chain_sm_bound(mode, emit, P_d, SWEEP_STEPS, target.n,
+                                    N=N, depth=d)
+                row = {"series": family, "mode": mode, "emit": emit, "N": N,
+                       "depth": d, "P": P_d,
+                       "us": event_ms(run, SWEEP_REPS) * 1e3 / SWEEP_STEPS,
+                       "bound_us": cb["bound_ms"] * 1e3 / SWEEP_STEPS,
+                       "bound_by": cb["bound_by"]}
+                rows.append(row)
+                print(f"P sweep {family} {emit} N={N} depth={d} P={P_d}: "
+                      f"{row['us']:.6g} µs per superstep (bound "
+                      f"{row['bound_us']:.6g}, {row['bound_by']})")
     fits = {}
-    for emit in ("root", "all"):
-        sel = [r for r in rows if r["emit"] == emit]
+    for r in rows:
+        key = (f"{r['series']} {r['emit']}" if r["series"] != "general"
+               else f"general N={r['N']} {r['emit']}")
+        fits.setdefault(key, []).append(r)
+    for key, sel in fits.items():
         slope, icpt = np.polyfit([r["P"] for r in sel],
                                  [r["us"] for r in sel], 1)
-        fits[emit] = {"intercept_us": float(icpt),
-                      "ns_per_node": float(slope) * 1e3}
+        fits[key] = {"intercept_us": float(icpt),
+                     "ns_per_node": float(slope) * 1e3}
     return {"rows": rows, "fits": fits}
+
+
+def stamp_splits(target, theta, seed) -> list[dict]:
+    """Where a superstep's clocks go, phase by phase, for each STAMP_CELLS
+    entry: one SWEEP_STEPS-superstep launch from the stamped library
+    (thread 0 of the block laps the SM clock at each phase boundary), its
+    clocks per superstep and shares, beside the default library's and the
+    stamped library's times of the same launch.  The stamped launch's
+    trace must be bit-equal to the default one's.  Not table times: the
+    laps cost a few instructions each."""
+    from pmpx_torch.kernels import fused_chain as fc
+
+    out = []
+    dev = theta.device
+    for mode, emit, N, d in STAMP_CELLS:
+        kw = dict(P=(N + 1) ** d, depth=d, n_data=float(target.n),
+                  temper=float(target.temper), step_size=0.02, mode=mode,
+                  N=N, emit=emit)
+        buf = torch.zeros(len(fc.STAMP_PHASES), dtype=torch.int64,
+                          device=dev)
+
+        def run(stamps=None, kw=kw):
+            return fc.chain_chunk(target.x2d, target.y2d, theta,
+                                  steps=SWEEP_STEPS, seed=seed,
+                                  stamps=stamps, **kw)
+
+        plain_out, stamped_out = run(), run(buf)
+        for a, b in zip(plain_out, stamped_out):
+            require(torch.equal(a, b), f"stamped {mode} {emit} bit-equal "
+                                       f"to the default library")
+        split = fc.stamp_split(mode, buf, SWEEP_STEPS)
+        total = sum(split.values())
+        row = {"mode": mode, "emit": emit, "N": N, "depth": d,
+               "P": kw["P"], "clocks_per_superstep": split,
+               "total_clocks": total,
+               "shares": {k: v / total for k, v in split.items()},
+               "ms_default": event_ms(run, SWEEP_REPS),
+               "ms_stamped": event_ms(lambda: run(buf), SWEEP_REPS)}
+        out.append(row)
+        print(f"stamps {mode} {emit} P={kw['P']}: {total:.6g} clocks per "
+              f"superstep; " + ", ".join(
+                  f"{k} {v:.6g} ({v / total:.3f})" for k, v in split.items()))
+    return out
 
 
 def chain_vs_plain(fc, label, target, theta0, consts, seed, steps=100,
@@ -515,11 +594,16 @@ def main() -> int:
         for line in built.log.splitlines():
             if "ptxas" in line or "spill" in line or "Used" in line:
                 print("  " + line.strip())
-        usage = ptxas_usage(built.log, BINARY_KERNELS)
-        for label in BINARY_KERNELS.values():
-            require(label in usage, f"ptxas reported {label}")
-            print(f"{label}: {usage[label]['registers']} registers, "
-                  f"{usage[label]['smem_bytes']} bytes of shared memory")
+        usage = ptxas_usage(built.log)
+        for mode in ("binary", "mp", "general"):
+            for tf in ("false", "true"):
+                require(any(k.startswith(f"chain_{mode}_kernel<{tf}")
+                            for k in usage),
+                        f"ptxas reported chain_{mode}_kernel<{tf}>")
+        for label, use in usage.items():
+            print(f"{label}: {use['registers']} registers, "
+                  f"{use['smem_bytes']} bytes of static shared memory, 0 "
+                  f"dynamic (none asked at launch)")
         # the gate products of lstm_fused on the tensor cores: TF32 HGMMA
         # (wgmma) in the f32 instantiation, BF16 HMMA (mma.sync) in bf16
         mma = lstm_sass_mma(built.path)
@@ -952,11 +1036,22 @@ def main() -> int:
         print(json.dumps({"farm_throughput": farm_curve, "device": name,
                           "power": smi}))
 
-        # the binary kernel's µs per superstep against P on the benchmark
+        # each chain kernel's µs per superstep against P on the benchmark
         # cell's data
-        sweep = binary_p_sweep(target, th0, seed)
+        sweep = chain_p_sweep(target, th0, seed)
         print(json.dumps({"p_sweep": sweep["rows"], "fits": sweep["fits"],
                           "device": name, "power": smi}))
+        # where a superstep's clocks go: the stamped chain library
+        stamped = _build.load(stamps=True)
+        print(f"stamped library {stamped.path.name}: built "
+              + ("by an earlier run" if stamped.seconds is None
+                 else f"in {stamped.seconds:.3f} s"))
+        for label, use in ptxas_usage(stamped.log).items():
+            print(f"stamped {label}: {use['registers']} registers, "
+                  f"{use['smem_bytes']} bytes of static shared memory")
+        splits = stamp_splits(target, th0, seed)
+        print(json.dumps({"stamp_splits": splits, "device": name,
+                          "power": smi}))
 
         # lstm_fused at the MNIST protocol's P = 8 over the 60,000 images,
         # beside P calls of cuDNN's LSTM with the same weights (bias_ih 0,

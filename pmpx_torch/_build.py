@@ -8,6 +8,12 @@ carries a hash of the sources and flags: an edit to a source builds a new
 library at its next use, and an unchanged tree reuses the old one.  The
 build runs at the first launch of a kernel, never at import.
 
+``load(stamps=True)`` builds a second library, only when asked: the chain
+kernels of ``csrc/fused_chain.cu`` compiled with ``-DPMPX_CHAIN_STAMPS``,
+which laps the SM clock at each phase of a superstep and exports
+``pmpx_chain_stamps`` to read the sums after a launch.  The define is in
+that library's hash; the default library never has it.
+
 Pointers and the stream cross the C boundary as ``c_void_p`` (a plain int
 would be cut to 32 bits); each entry point returns the launch's
 ``cudaError_t``, and :func:`check` raises on anything but 0.
@@ -34,6 +40,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# the stamped library: its define, and the one source it compiles
+STAMP_FLAGS = ("-DPMPX_CHAIN_STAMPS",)
+STAMP_SOURCE = "fused_chain.cu"
 BUILD_TIMEOUT_S = 600
 
 _P = ctypes.c_void_p
@@ -47,6 +56,10 @@ _SIGNATURES = {
          _I, _F, _F, _F, _F, _P]
     ),
     "pmpx_lstm_fused": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+_STAMP_SIGNATURES = {
+    "pmpx_fused_chain": _SIGNATURES["pmpx_fused_chain"],
+    "pmpx_chain_stamps": [_P, _P],
 }
 
 
@@ -70,13 +83,19 @@ def nvcc_path() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def _sources() -> list[Path]:
+def _sources(stamps: bool = False) -> list[Path]:
+    if stamps:
+        return [CSRC / STAMP_SOURCE] + sorted(CSRC.glob("*.cuh"))
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+def _flags(stamps: bool) -> tuple:
+    return NVCC_FLAGS + STAMP_FLAGS if stamps else NVCC_FLAGS
+
+
+def _digest(stamps: bool = False) -> str:
+    h = hashlib.sha256(" ".join(_flags(stamps) + LINK_FLAGS).encode())
+    for src in _sources(stamps):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -107,16 +126,17 @@ def _start(cmd: list) -> tuple:
                                  stderr=subprocess.PIPE, text=True)
 
 
-def _compile(so: Path) -> tuple[float, str]:
+def _compile(so: Path, stamps: bool) -> tuple[float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
-    cu = [s for s in _sources() if s.suffix == ".cu"]
+    cu = [s for s in _sources(stamps) if s.suffix == ".cu"]
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        log = _run([_start([nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj),
-                            str(src)]) for src, obj in zip(cu, objs)])
+        log = _run([_start([nvcc_path(), *_flags(stamps), "-c", "-o",
+                            str(obj), str(src)])
+                    for src, obj in zip(cu, objs)])
         log += _run([_start([nvcc_path(), *LINK_FLAGS, "-o", str(tmp),
                              *map(str, objs)])])
     except BaseException:
@@ -132,22 +152,26 @@ def _compile(so: Path) -> tuple[float, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> Built:
-    """Build (if the sources changed) and load the kernel library."""
-    so = BUILD_DIR / f"libpmpx_torch_kernels_{_digest()}.so"
+def load(stamps: bool = False) -> Built:
+    """Build (if the sources changed) and load the kernel library, or with
+    ``stamps`` the stamped chain library (module docstring)."""
+    stem = "libpmpx_torch_chain_stamps" if stamps else "libpmpx_torch_kernels"
+    so = BUILD_DIR / f"{stem}_{_digest(stamps)}.so"
     seconds = None
     if so.exists():
         log_file = so.with_suffix(".log")
         log = log_file.read_text() if log_file.exists() else ""
     else:
-        seconds, log = _compile(so)
+        seconds, log = _compile(so, stamps)
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in (_STAMP_SIGNATURES if stamps
+                           else _SIGNATURES).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.pmpx_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pmpx_cuda_error_string.restype = ctypes.c_char_p
+    if not stamps:
+        lib.pmpx_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pmpx_cuda_error_string.restype = ctypes.c_char_p
     return Built(lib=lib, path=so, seconds=seconds, log=log)
 
 

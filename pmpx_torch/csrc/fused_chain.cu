@@ -6,10 +6,10 @@
 // three modes:
 //   binary  (N = 1, P = 2^depth <= 1024)        chain_binary_kernel
 //   mp      (flat MTM, depth 1, P = N+1 <= 1024) chain_mp_kernel
-//   general (base N+1 a power of two, P = base^depth <= 1024)
-//                                               chain_general_kernel
-// Each kernel is a template on kAll (emit="all"); kAll = false is the
-// emit="root" chain.  A grid of C blocks runs C independent chains (the
+//   general (base N+1 a power of two >= 4, depth 2-5, P = base^depth
+//            <= 1024)                           chain_general_kernel
+// Each kernel is a template on kAll (emit="all"), the general one also on
+// its depth; kAll = false is the emit="root" chain.  A grid of C blocks runs C independent chains (the
 // chain farm, pmpx/parallel/chains.py:make_chain_farm_fused, which runs
 // the TPU kernel once per chain): block c reads seed[c], theta_in[c] and
 // its own uniforms, and writes its own trace and theta_out; the data grids
@@ -39,7 +39,8 @@
 //            a_i = x mod 2^(i+1)
 //   mp:      lw = logpi - (P |S_x|^2 - 2 S_x.G + Q) / (2 sigma_t^2 norm),
 //            G = sum_{x<P} S, Q = sum_{x<P} |S|^2;
-//            logA = lw - (max lw + log sum exp(lw - max lw))
+//            logA = lw - (max lw + log sum exp(lw - max lw)), so that
+//            w = exp(lw - max lw), which the walk hands over
 //   general: per level i, temp = base^i, m = base temp; node x < m is
 //            member x div temp of the sibling group h = x mod temp;
 //            lw[x] = logpi - (base |S_x|^2 - 2 S_x.G_h + Q_h) / (2 s_t^2 norm)
@@ -70,8 +71,9 @@
 // the warp totals; the root selection count is __syncthreads_count.  Block
 // sums and maxima are warp shuffles, then one pass over the <= 32 warp
 // partials in shared memory, in a fixed order (no atomics: deterministic).
-// The general walk's (L, L) group-membership matmuls become a loop over
-// the base <= 32 siblings in shared memory.  The next root is
+// The general walk's (L, L) group-membership matmuls become one thread per
+// sibling group, looping over its base <= 32 members in shared memory once
+// for all the group's members and all levels.  The next root is
 // double-buffered in shared memory so that it needs no barrier of its
 // own.  emit="all" replaces the TPU kernel's (L, L) compare and one-hot
 // matmuls: every thread puts its node's position and its inclusive cdf in
@@ -81,12 +83,22 @@
 // superstep) and publishes its draw; thread j then forms its jump from
 // slot j - 1, and J is one block sum.  Its buffers are sized for
 // L <= 512, emit="all"'s cap (pmpx's supports()).  Barriers per
-// superstep, counted from the code: 4 shared (the draw, the weights'
-// max and scan, then the count of emit="root" or the positions of
-// emit="all"), plus binary 2 (the log-densities, the pairs' terms), mp 3,
-// general 1 + 2 depth; emit="all" adds 2 (the draws, the jump sum).
-// emit="root": binary 6, mp 7, general 5 + 2 depth; emit="all": binary
-// 8, mp 9, general 7 + 2 depth.
+// superstep, counted from the code: 3 shared (the draw, the weights' scan,
+// then the count of emit="root" or the positions of emit="all"), the
+// weights' max in binary and general (the MP walk hands the weights
+// over), plus binary 2 (the log-densities, the pairs' terms), mp 2 (the
+// sums, the max), general 5 whatever the depth (S, the group sums, the
+// level maxima, the rows, the group totals); emit="all" adds 2 (the draws,
+// the jump sum).  emit="root": binary 6, mp 5, general 9; emit="all":
+// binary 8, mp 7, general 11.
+// Static shared memory (bytes; ptxas's counts, chip_smoke.py phase 1):
+// chain_loop holds s_eps (3 x kMaxL floats), the reduction partials, the
+// double-buffered root and, for emit="all", EmitBuf (cdf, positions and
+// draws of <= 512 slots); binary adds lp and the pair rows (3 kMaxL - 2
+// floats), mp four sums' and the max's partials, general S (3 kMaxL
+// floats, reused for the lw and e rows), the group sums (4 x 341 floats,
+// reused for log T) and the level maxima's partials (depth x 32).  All
+// under the 48 KB static cap; no dynamic shared memory.
 // Uniforms come either from an in-kernel Philox4x32-10 keyed by a
 // per-chunk seed, or (the testable path) from 17 injected rows of L lanes
 // per superstep, laid out as pmpx's rng="input": rows 0-7 u1, rows 8-15
@@ -106,6 +118,62 @@ constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr float kTwoPi = 6.2831853071795865f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -__builtin_huge_valf();
+
+// Phase clocks of a superstep.  Built with PMPX_CHAIN_STAMPS (the stamped
+// library, pmpx_torch/_build.py's load(stamps=True)), every thread laps the
+// SM's 32-bit clock at each phase boundary and adds the clocks since its
+// last lap to that phase's sum (32-bit registers, so that the 1024-thread
+// kernels do not spill; a phase's sum wraps after 2^32 clocks, ~2 s);
+// thread 0 of block 0 writes its sums to g_chain_stamps at the end of the
+// launch, read by pmpx_chain_stamps.  Without the define a lap is empty
+// and the kernels compile as before.
+// The kWalk* phases are the mode's walk, in order (binary: lp to shared,
+// pair softplus, level sum; mp: the four sums, max lw and the weights;
+// general: S to shared, group sums, lw and level max, rows, totals, logA
+// sum).
+enum ChainPhase {
+  kPhilox, kBoxMuller, kDrawBarrier, kLogDensity,
+  kWalk0, kWalk1, kWalk2, kWalk3, kWalk4, kWalk5,
+  kWeightsMax, kWeightsScan, kSelect, kJump, kTrace, kPhases
+};
+
+#ifdef PMPX_CHAIN_STAMPS
+__device__ unsigned long long g_chain_stamps[kPhases];
+
+__device__ __forceinline__ unsigned sm_clock() {
+  unsigned c;
+  asm volatile("mov.u32 %0, %%clock;" : "=r"(c));
+  return c;
+}
+
+struct Clock {
+  unsigned last;
+  unsigned acc[kPhases];
+
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int p = 0; p < kPhases; ++p) acc[p] = 0u;
+    last = sm_clock();
+  }
+  __device__ __forceinline__ void lap(int p) {
+    const unsigned now = sm_clock();
+    acc[p] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void write() const {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+#pragma unroll
+      for (int p = 0; p < kPhases; ++p) g_chain_stamps[p] = acc[p];
+    }
+  }
+};
+#else
+struct Clock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void write() const {}
+};
+#endif
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -177,6 +245,25 @@ __device__ __forceinline__ float block_max(float v, float* buf, int nw) {
   return warp_max(lane < nw ? buf[lane] : kNegInf);
 }
 
+// Maxima of K values over the block in a fixed order, one barrier, as
+// block_max does each (K independent shuffle chains).
+template <int K>
+__device__ __forceinline__ void block_maxes(float (&v)[K],
+                                            float (*buf)[kMaxWarps], int nw) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = warp_max(v[j]);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) buf[j][threadIdx.x >> 5] = v[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    v[j] = warp_max(lane < nw ? buf[j][lane] : kNegInf);
+  }
+}
+
 constexpr int kMaxEmitL = 512;  // emit="all"'s cap on L (pmpx's supports)
 
 struct ChainArgs {
@@ -216,7 +303,7 @@ __device__ __forceinline__ void draw_innovations(const ChainArgs& a, uint2 key,
                                                  int t, int x, int L,
                                                  bool valid,
                                                  float (*eps)[kMaxL],
-                                                 float* usel) {
+                                                 float* usel, Clock& clk) {
   float u1[3], u2[3];
   if (a.uin != nullptr) {
     const float* ut = a.uin + (size_t)t * kURows * L;
@@ -236,11 +323,13 @@ __device__ __forceinline__ void draw_innovations(const ChainArgs& a, uint2 key,
           to_unit(philox4x32_10(make_uint4(0xffffffffu, t, 2u, 0u), key).x);
     }
   }
+  clk.lap(kPhilox);
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     const float z = sqrtf(-2.f * logf(u1[r])) * cosf(kTwoPi * u2[r]);
     eps[r][x] = valid ? a.step_size * z : 0.f;
   }
+  clk.lap(kBoxMuller);
 }
 
 // Slot x's uniform of emit="all" for superstep t.
@@ -262,22 +351,18 @@ struct LinRegStats {
   }
 };
 
-// The max-shifted weights of logA over the valid lanes and their
-// inclusive scan (within the warp, then over warp totals).  Two barriers;
-// returns this thread's cdf and sum(w) (a reduction, not cdf[-1]), the
-// same in every thread.
+// The inclusive scan of the weights w (0 at the lanes >= P; within the
+// warp, then over warp totals).  One barrier; returns this thread's cdf
+// and sum(w) (a reduction, not cdf[-1]), the same in every thread.
 struct Cdf {
   float cdf;
   float wsum;
 };
 
-__device__ __forceinline__ Cdf weight_cdf(float logA, bool valid,
-                                          float* s_max, float* s_scan,
-                                          int nw) {
+__device__ __forceinline__ Cdf weight_cdf(float w, float* s_scan, int nw,
+                                          Clock& clk) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float m = block_max(valid ? logA : kNegInf, s_max, nw);
-  const float w = valid ? expf(logA - m) : 0.f;
   float c = w;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -296,17 +381,20 @@ __device__ __forceinline__ Cdf weight_cdf(float logA, bool valid,
   float ex = __shfl_up_sync(kFull, off, 1);
   if (lane == 0) ex = 0.f;
   off = __shfl_sync(kFull, ex, warp);  // sum of the earlier warps' totals
-  return Cdf{c + off, warp_sum(tot)};
+  const Cdf out{c + off, warp_sum(tot)};
+  clk.lap(kWeightsScan);
+  return out;
 }
 
 // One categorical draw: k = #{x < P : cdf[x] < usel * sum(w)} clamped to
-// P - 1.  Three barriers; all threads return the same k.
-__device__ __forceinline__ int select_node(float logA, bool valid, int P,
-                                           const float* usel, float* s_max,
-                                           float* s_scan, int nw) {
-  const Cdf c = weight_cdf(logA, valid, s_max, s_scan, nw);
+// P - 1.  Two barriers; all threads return the same k.
+__device__ __forceinline__ int select_node(float w, bool valid, int P,
+                                           const float* usel, float* s_scan,
+                                           int nw, Clock& clk) {
+  const Cdf c = weight_cdf(w, s_scan, nw, clk);
   const float u = *usel * c.wsum;
   const int cnt = __syncthreads_count(valid && c.cdf < u);
+  clk.lap(kSelect);
   return min(cnt, P - 1);
 }
 
@@ -324,9 +412,12 @@ template <>
 struct EmitBuf<false> {};
 
 // The chain loop the three modes share.  Walk provides
-//   offset(x, eps, S):            S[x] from the innovations in shared memory
-//   log_accept(x, valid, S, lp):  logA of node x (all threads call it: it
-//                                 may hold barriers)
+//   offset(x, eps, S):     S[x] from the innovations in shared memory
+//   log_accept(x, valid, S, lp, clk):
+//                          logA of node x (all threads call it: it may hold
+//                          barriers), whose weight the loop forms as
+//                          exp(logA - max logA); or, if Walk::kHandsWeights,
+//                          node x's weight itself (0 at lanes >= P)
 template <bool kAll, class Walk>
 __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
   __shared__ float s_eps[3][kMaxL];
@@ -363,13 +454,17 @@ __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
                                0x5bd1e995u);
   __syncthreads();
 
+  Clock clk;
+  clk.start();
   for (int t = 0; t < a.steps; ++t) {
-    draw_innovations(a, key, t, x, L, valid, s_eps, &s_usel);
+    draw_innovations(a, key, t, x, L, valid, s_eps, &s_usel, clk);
     float ue = 0.f;
     if constexpr (kAll) {
       if (valid) ue = slot_uniform(a, key, t, x, L);
+      clk.lap(kPhilox);
     }
     __syncthreads();
+    clk.lap(kDrawBarrier);
 
     const float* th = s_theta[t & 1];
     float S[3];
@@ -378,11 +473,18 @@ __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
     const float b1 = th[1] + S[1];
     const float sg = th[2] + S[2];
     const float logpi = lik.log_density(b0, b1, sg);
-    const float logA = walk.log_accept(x, valid, S, logpi);
+    clk.lap(kLogDensity);
+    const float la = walk.log_accept(x, valid, S, logpi, clk);
+    float w = la;
+    if constexpr (!Walk::kHandsWeights) {
+      const float m = block_max(valid ? la : kNegInf, s_max, nw);
+      w = valid ? expf(la - m) : 0.f;
+    }
+    clk.lap(kWeightsMax);
     float* nx = s_theta[(t + 1) & 1];
 
     if constexpr (!kAll) {
-      const int k = select_node(logA, valid, a.P, &s_usel, s_max, s_scan, nw);
+      const int k = select_node(w, valid, a.P, &s_usel, s_scan, nw, clk);
       if (x == k) {
         nx[0] = b0;
         nx[1] = b1;
@@ -393,7 +495,7 @@ __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
         a.trace[3 * a.steps + t] = static_cast<float>(k);
       }
     } else {
-      const Cdf c = weight_cdf(logA, valid, s_max, s_scan, nw);
+      const Cdf c = weight_cdf(w, s_scan, nw, clk);
       if (valid) {
         s_em.cdf[x] = c.cdf;
         s_em.pos[0][x] = b0;
@@ -425,6 +527,7 @@ __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
         a.emit_b0[(size_t)t * a.P + x] = sel[0];
       }
       __syncthreads();
+      clk.lap(kSelect);
       float jump = 0.f;
       if (valid && x > 0) {
 #pragma unroll
@@ -434,6 +537,7 @@ __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
         }
       }
       const float J = block_sum(jump, s_em.jsum, nw);
+      clk.lap(kJump);
       if (x == 0) {
         nx[0] = sel[0];
         nx[1] = sel[1];
@@ -450,7 +554,9 @@ __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
         a.trace[6 * a.steps + t] = sel[2];
       }
     }
+    clk.lap(kTrace);
   }
+  clk.write();
   __syncthreads();
   if (x < 3) a.theta_out[x] = s_theta[a.steps & 1][x];
 }
@@ -472,6 +578,7 @@ __device__ __forceinline__ void chain_loop(ChainArgs a, const Walk& walk) {
 // log_sigmoid(-d, sp) are each sibling's own operations on the same
 // operands.  The sums then add the same terms in the same order.
 struct BinaryWalk {
+  static constexpr bool kHandsWeights = false;
   int depth;
   float* lp;  // [kMaxL] log-densities
   float* ls;  // [2 kMaxL - 2] log-sigmoid terms: level i's node v < 2^(i+1)
@@ -490,10 +597,11 @@ struct BinaryWalk {
   }
 
   __device__ __forceinline__ float log_accept(int x, bool valid,
-                                              const float (&)[3],
-                                              float logpi) const {
+                                              const float (&)[3], float logpi,
+                                              Clock& clk) const {
     lp[x] = logpi;
     __syncthreads();
+    clk.lap(kWalk0);
     if (x > 0 && x < (1 << depth)) {
       const int i = 31 - __clz(x);
       const int lo = x - (1 << i);
@@ -504,23 +612,33 @@ struct BinaryWalk {
       row[x] = log_sigmoid(-d, sp);
     }
     __syncthreads();
+    clk.lap(kWalk1);
     float logA = 0.f;
     if (valid) {
       for (int i = 0; i < depth; ++i) {
         logA += ls[(2 << i) - 2 + (x & ((2 << i) - 1))];
       }
     }
+    clk.lap(kWalk2);
     return logA;
   }
 };
 
-// Flat MTM: one sibling group of all P nodes.
+// Flat MTM: one sibling group of all P nodes.  The walk hands the loop the
+// weights themselves, w = exp(lw - m) with m = max lw over the valid lanes:
+// logA = lw - (m + log sum exp(lw - m)) only shifts lw by a constant, which
+// exp(logA - max logA) takes out again, so the exp-sum, its block
+// reduction and barrier, its log and the weights' own max and exp are not
+// needed (the scan's total is sum(w)).  The weights differ from the plain
+// version's by the roundings of that shift (a few ulps of the exp's
+// argument), so a draw can flip where u sum(w) falls within them of a cdf
+// edge.
 struct MPWalk {
+  static constexpr bool kHandsWeights = true;
   int P;
   float denom;                // 2 sigma_t^2 norm
   float (*sums)[kMaxWarps];   // [4][kMaxWarps]
   float* red_max;             // [kMaxWarps]
-  float* red_sum;             // [kMaxWarps]
   int nw;
 
   __device__ __forceinline__ void offset(int x, float (*eps)[kMaxL],
@@ -530,37 +648,75 @@ struct MPWalk {
   }
 
   __device__ __forceinline__ float log_accept(int, bool valid,
-                                              const float (&S)[3],
-                                              float logpi) const {
+                                              const float (&S)[3], float logpi,
+                                              Clock& clk) const {
     const float sq = S[0] * S[0] + S[1] * S[1] + S[2] * S[2];
     float g[4] = {valid ? S[0] : 0.f, valid ? S[1] : 0.f,
                   valid ? S[2] : 0.f, valid ? sq : 0.f};
     block_sums<4>(g, sums, nw);
+    clk.lap(kWalk0);
     const float cross = S[0] * g[0] + S[1] * g[1] + S[2] * g[2];
     const float d2 = static_cast<float>(P) * sq - 2.f * cross + g[3];
     const float lw = logpi - d2 / denom;
     const float m = block_max(valid ? lw : kNegInf, red_max, nw);
-    const float se = block_sum(valid ? expf(lw - m) : 0.f, red_sum, nw);
-    return lw - (m + logf(se));
+    const float w = valid ? expf(lw - m) : 0.f;
+    clk.lap(kWalk1);
+    return w;
   }
 };
 
-// General (N, depth) tree with a power-of-two base N + 1 = 2^lb.
+// General (N, depth) tree with a power-of-two base N + 1 = 2^lb (lb >= 2,
+// so 2 <= depth <= kMaxDepth: a template parameter, and every level loop
+// below is straight-line code).  Each sibling group's work is done once,
+// by one thread, for all levels in one pass: thread g < sum_i base^i takes
+// group slot g, the groups of level i holding slots [goff_i, goff_i +
+// base^i), goff_i = sum_{k<i} base^k (its level gl and residue gh are
+// fixed per launch).  Per superstep, five barriers whatever the depth:
+//   1. every node stores S;
+//   2. each group thread forms G_h and Q_h over its base members;
+//   3. every node forms lw_i for each level it is in (x < base^(i+1)), and
+//      one block reduction gives every level's max zm_i at once;
+//   4. every node stores lw_i and e = exp(lw_i - zm_i) into the rows;
+//   5. each group thread forms T_h and log T_h;
+// then every node sums its depth terms in level order.  The rows of level
+// i start at roff_i = base goff_i; they overwrite S, which no one reads
+// after barrier 2, and log T overwrites G_h, which no one reads after
+// barrier 3.
+//
+// logA stays bit for bit what the per-member walk gave, where every member
+// formed its group's sums, total and log itself at each level (one block
+// max and two barriers a level): the group sums run over the same members
+// in the same j order with the same expressions; lw_i and its cross term
+// are the same expressions of the same operands, with base |S|^2 rounded
+// on its own (never fused into the subtraction), as the per-member walk's
+// level loop rounded it; a max is exact whatever
+// the order; T_h, its clamp, its log and logA + lw - zm - log T are the
+// same operations in the same order.
+constexpr int kMaxDepth = 5;
+constexpr int kMaxGroups = 341;  // sum_{i<depth} base^i at base 4, depth 5
+constexpr int kMaxRows = 1364;   // sum_{i<depth} base^(i+1), the same tree
+
+template <int kDepth>
 struct GeneralWalk {
+  static_assert(kDepth >= 2 && kDepth <= kMaxDepth, "general depth");
+  static constexpr bool kHandsWeights = false;
   int base;
   int lb;  // log2(base)
-  int depth;
-  float denom;           // 2 sigma_t^2 norm
-  float (*Ssh)[kMaxL];   // [3][kMaxL] offsets S
-  float* lw_sh;          // [kMaxL] level weights
-  float* e_sh;           // [kMaxL] exp(lw - zm)
-  float* red_max;        // [kMaxWarps]
+  float denom;               // 2 sigma_t^2 norm
+  int gl;                    // this thread's group: level (kDepth if none)
+  int gh;                    // and residue h < base^gl
+  float (*Ssh)[kMaxL];       // [3][kMaxL] offsets S; then, flat, the lw
+                             // rows at [0, kMaxRows), the e rows after them
+  float (*grp)[kMaxGroups];  // [4][kMaxGroups] G_h (3) and Q_h by group
+                             // slot; then log T_h in grp[0]
+  float (*red)[kMaxWarps];   // [kDepth][kMaxWarps] the level maxima
   int nw;
 
   __device__ __forceinline__ void offset(int x, float (*eps)[kMaxL],
                                          float (&S)[3]) const {
     S[0] = S[1] = S[2] = 0.f;
-    for (int i = 0; i < depth; ++i) {
+#pragma unroll
+    for (int i = 0; i < kDepth; ++i) {
       if ((x >> (lb * i)) & (base - 1)) {
         const int anc = x & ((1 << (lb * (i + 1))) - 1);
 #pragma unroll
@@ -570,50 +726,101 @@ struct GeneralWalk {
   }
 
   __device__ __forceinline__ float log_accept(int x, bool valid,
-                                              const float (&S)[3],
-                                              float logpi) const {
+                                              const float (&S)[3], float logpi,
+                                              Clock& clk) const {
 #pragma unroll
     for (int r = 0; r < 3; ++r) Ssh[r][x] = S[r];
     __syncthreads();
+    clk.lap(kWalk0);
+    const int gtemp = 1 << (lb * gl);
+    if (gl < kDepth) {
+      // the sibling group of residue gh: members gh + j gtemp, j < base
+      float g0 = 0.f, g1 = 0.f, g2 = 0.f, q = 0.f;
+      for (int j = 0; j < base; ++j) {
+        const int b = gh + j * gtemp;
+        const float s0 = Ssh[0][b], s1 = Ssh[1][b], s2 = Ssh[2][b];
+        g0 += s0;
+        g1 += s1;
+        g2 += s2;
+        q += s0 * s0 + s1 * s1 + s2 * s2;
+      }
+      grp[0][x] = g0;
+      grp[1][x] = g1;
+      grp[2][x] = g2;
+      grp[3][x] = q;
+    }
+    __syncthreads();
+    clk.lap(kWalk1);
     const float sq = S[0] * S[0] + S[1] * S[1] + S[2] * S[2];
+    const float bsq = static_cast<float>(base) * sq;
+    float lw[kDepth], zm[kDepth];
+#pragma unroll
+    for (int i = 0, temp = 1, goff = 0; i < kDepth; ++i) {
+      lw[i] = kNegInf;
+      if (x < temp << lb) {
+        const int g = goff + (x & (temp - 1));
+        const float cross = S[0] * grp[0][g] + S[1] * grp[1][g] +
+                            S[2] * grp[2][g];
+        const float gd2 = bsq - 2.f * cross + grp[3][g];
+        lw[i] = logpi - gd2 / denom;
+      }
+      zm[i] = lw[i];
+      goff += temp;
+      temp <<= lb;
+    }
+    block_maxes<kDepth>(zm, red, nw);
+    clk.lap(kWalk2);
+    float* lw_row = &Ssh[0][0];
+    float* e_row = lw_row + kMaxRows;
+#pragma unroll
+    for (int i = 0, temp = 1, goff = 0; i < kDepth; ++i) {
+      if (x < temp << lb) {
+        const int at = (goff << lb) + x;
+        lw_row[at] = lw[i];
+        e_row[at] = expf(lw[i] - zm[i]);
+      }
+      goff += temp;
+      temp <<= lb;
+    }
+    __syncthreads();
+    clk.lap(kWalk3);
+    if (gl < kDepth) {
+      const float* e = e_row + ((x - gh) << lb);
+      float T = 0.f;
+      for (int j = 0; j < base; ++j) T += e[gh + j * gtemp];
+      T = fmaxf(T, 1e-30f);
+      grp[0][x] = logf(T);
+    }
+    __syncthreads();
+    clk.lap(kWalk4);
     float logA = 0.f;
-    for (int i = 0; i < depth; ++i) {
-      const int temp = 1 << (lb * i);
-      const int m = temp << lb;
-      float lw = kNegInf;
-      if (x < m) {
-        // the sibling group of residue h: members h + j temp, j < base
-        const int h = x & (temp - 1);
-        float g0 = 0.f, g1 = 0.f, g2 = 0.f, q = 0.f;
-        for (int j = 0; j < base; ++j) {
-          const int b = h + j * temp;
-          const float s0 = Ssh[0][b], s1 = Ssh[1][b], s2 = Ssh[2][b];
-          g0 += s0;
-          g1 += s1;
-          g2 += s2;
-          q += s0 * s0 + s1 * s1 + s2 * s2;
-        }
-        const float cross = S[0] * g0 + S[1] * g1 + S[2] * g2;
-        const float gd2 = static_cast<float>(base) * sq - 2.f * cross + q;
-        lw = logpi - gd2 / denom;
-      }
-      const float zm = block_max(lw, red_max, nw);
-      if (x < m) {
-        lw_sh[x] = lw;
-        e_sh[x] = expf(lw - zm);
-      }
-      __syncthreads();
-      if (valid) {
-        const int h = x & (temp - 1);
-        float T = 0.f;
-        for (int j = 0; j < base; ++j) T += e_sh[h + j * temp];
-        T = fmaxf(T, 1e-30f);
-        logA = logA + lw_sh[x & (m - 1)] - zm - logf(T);
+    if (valid) {
+#pragma unroll
+      for (int i = 0, temp = 1, goff = 0; i < kDepth; ++i) {
+        logA = logA + lw_row[(goff << lb) + (x & ((temp << lb) - 1))] -
+               zm[i] - grp[0][goff + (x & (temp - 1))];
+        goff += temp;
+        temp <<= lb;
       }
     }
+    clk.lap(kWalk5);
     return logA;
   }
 };
+
+// The group slot of thread x: level *gl and residue *gh, or *gl = depth
+// for a thread past the last group.
+__device__ __forceinline__ void group_slot(int x, int lb, int depth, int* gl,
+                                           int* gh) {
+  int g = x, temp = 1, i = 0;
+  while (i < depth && g >= temp) {
+    g -= temp;
+    temp <<= lb;
+    ++i;
+  }
+  *gl = i;
+  *gh = g;
+}
 
 template <bool kAll>
 __global__ void __launch_bounds__(kAll ? kMaxEmitL : kMaxL)
@@ -628,20 +835,21 @@ __global__ void __launch_bounds__(kAll ? kMaxEmitL : kMaxL)
 chain_mp_kernel(ChainArgs a, float denom) {
   __shared__ float s_sums[4][kMaxWarps];
   __shared__ float s_rmax[kMaxWarps];
-  __shared__ float s_rsum[kMaxWarps];
-  chain_loop<kAll>(a, MPWalk{a.P, denom, s_sums, s_rmax, s_rsum,
+  chain_loop<kAll>(a, MPWalk{a.P, denom, s_sums, s_rmax,
                              static_cast<int>(blockDim.x >> 5)});
 }
 
-template <bool kAll>
+template <bool kAll, int kDepth>
 __global__ void __launch_bounds__(kAll ? kMaxEmitL : kMaxL)
-chain_general_kernel(ChainArgs a, int base, int lb, int depth, float denom) {
+chain_general_kernel(ChainArgs a, int base, int lb, float denom) {
   __shared__ float s_S[3][kMaxL];
-  __shared__ float s_lw[kMaxL];
-  __shared__ float s_e[kMaxL];
-  __shared__ float s_rmax[kMaxWarps];
-  chain_loop<kAll>(a, GeneralWalk{base, lb, depth, denom, s_S, s_lw, s_e,
-                                  s_rmax, static_cast<int>(blockDim.x >> 5)});
+  __shared__ float s_grp[4][kMaxGroups];
+  __shared__ float s_rmax[kDepth][kMaxWarps];
+  int gl, gh;
+  group_slot(threadIdx.x, lb, kDepth, &gl, &gh);
+  chain_loop<kAll>(a, GeneralWalk<kDepth>{base, lb, denom, gl, gh, s_S, s_grp,
+                                          s_rmax,
+                                          static_cast<int>(blockDim.x >> 5)});
 }
 
 enum Mode { kBinary = 0, kMP = 1, kGeneral = 2 };
@@ -656,7 +864,7 @@ bool valid_tree(int mode, int P, int base, int depth, int* lb) {
     case kMP:
       return depth == 1 && base == P;
     case kGeneral:
-      return base >= 2 && (1 << *lb) == base && depth >= 1 &&
+      return base >= 4 && (1 << *lb) == base && depth >= 2 &&
              *lb * depth <= 10 && (1 << (*lb * depth)) == P;
     default:
       return false;
@@ -674,8 +882,23 @@ void launch(int mode, int chains, int L, const ChainArgs& a, int base,
       chain_mp_kernel<kAll><<<chains, L, 0, stream>>>(a, denom);
       break;
     default:
-      chain_general_kernel<kAll><<<chains, L, 0, stream>>>(a, base, lb, depth,
-                                                          denom);
+      switch (depth) {  // valid_tree: 2 <= depth <= 5
+        case 2:
+          chain_general_kernel<kAll, 2><<<chains, L, 0, stream>>>(a, base, lb,
+                                                                 denom);
+          break;
+        case 3:
+          chain_general_kernel<kAll, 3><<<chains, L, 0, stream>>>(a, base, lb,
+                                                                 denom);
+          break;
+        case 4:
+          chain_general_kernel<kAll, 4><<<chains, L, 0, stream>>>(a, base, lb,
+                                                                 denom);
+          break;
+        default:
+          chain_general_kernel<kAll, 5><<<chains, L, 0, stream>>>(a, base, lb,
+                                                                 denom);
+      }
   }
 }
 
@@ -686,7 +909,7 @@ extern "C" {
 // Runs one chunk of `steps` supersteps of `chains` independent chains, one
 // block of `L` threads each (P rounded up to 128, at most 1024).
 //   mode: 0 binary (base 2), 1 flat MP (depth 1, base = P), 2 general
-//         (base a power of two); P = base^depth.
+//         (base a power of two >= 4, depth 2-5); P = base^depth.
 //   emit_all: 0 for emit="root" (trace (chains, 4, steps)), 1 for
 //         emit="all" (one chain, L <= 512; trace (8, steps), emit_b0
 //         (steps, P)).
@@ -728,5 +951,17 @@ int pmpx_fused_chain(int mode, int emit_all, int chains, const int* seed,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef PMPX_CHAIN_STAMPS
+// The stamped library only: copies the last launch's phase clocks (block 0,
+// thread 0; kPhases unsigned 64-bit sums over its supersteps, in
+// ChainPhase's order) to the device buffer `dst` on `stream`, after that
+// launch.  Returns the copy's cudaError_t.
+int pmpx_chain_stamps(void* dst, void* stream) {
+  return static_cast<int>(cudaMemcpyFromSymbolAsync(
+      dst, g_chain_stamps, sizeof(g_chain_stamps), 0,
+      cudaMemcpyDeviceToDevice, static_cast<cudaStream_t>(stream)));
+}
+#endif
 
 }  // extern "C"

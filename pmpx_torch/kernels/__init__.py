@@ -6,7 +6,9 @@ adds one where it launches its kernel and nowhere else (the plain version
 on a CPU tensor does not count).  ``fused_chain`` counts one chain with
 ``emit="root"`` per mode, ``*_all`` one chain with ``emit="all"``, and
 ``fused_chain_farm`` a launch of a farm of chains in any mode,
-``lstm_fused`` one launch of the LSTM forward for P parameter sets.
+``fused_chain_stamped`` a launch from the stamped chain library (phase
+clocks; a measurement, never the main path), ``lstm_fused`` one launch
+of the LSTM forward for P parameter sets.
 """
 
 launches = {
@@ -18,6 +20,7 @@ launches = {
     "fused_chain_mp_all": 0,
     "fused_chain_general_all": 0,
     "fused_chain_farm": 0,
+    "fused_chain_stamped": 0,
     "lstm_fused": 0,
 }
 

@@ -26,6 +26,13 @@ out as ``pmpx``'s, so both packages can be fed the same numbers;
 slot j on lane j, as ``pmpx``'s ``uemit``.  On the CPU there is no
 in-kernel generator, so ``rng="kernel"`` draws input uniforms from the
 generator instead, as ``pmpx`` does off the TPU.
+
+Phase clocks: ``chain_chunk(..., stamps=buf)`` launches the same kernel
+from the stamped library (``_build.load(stamps=True)``), which laps
+the SM clock at each phase boundary of a superstep, and writes block 0's
+thread 0's sums into ``buf`` in :data:`STAMP_PHASES` order
+(:func:`stamp_split` labels them).  A measurement only: the default
+library has no stamps.
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ __all__ = [
     "KERNEL_NAME",
     "KERNEL_NAME_ALL",
     "FARM_KERNEL",
+    "STAMPED_KERNEL",
+    "STAMP_PHASES",
+    "stamp_split",
     "U_ROWS",
     "EMIT_MAX_L",
 ]
@@ -88,6 +98,19 @@ KERNEL_NAME_ALL = {
     "general": "fused_chain_general_all",
 }
 FARM_KERNEL = "fused_chain_farm"
+# the launch counter of a launch from the stamped library (any mode, emit)
+STAMPED_KERNEL = "fused_chain_stamped"
+# the phases the stamped library clocks, in csrc/fused_chain.cu's
+# ChainPhase order; walk0-walk5 are the mode's walk (_WALK_PHASES)
+STAMP_PHASES = ("philox", "box_muller", "draw_barrier", "log_density",
+                "walk0", "walk1", "walk2", "walk3", "walk4", "walk5",
+                "weights_max", "weights_scan", "select", "jump", "trace")
+_WALK_PHASES = {
+    "binary": ("lp to shared", "pair softplus", "level sum"),
+    "mp": ("four sums", "max lw and the weights"),
+    "general": ("S to shared", "group sums", "lw and level max", "rows",
+                "totals", "logA sum"),
+}
 # the mode argument of the C entry point
 _MODE_ID = {"binary": 0, "mp": 1, "general": 2}
 
@@ -138,6 +161,24 @@ def chain_mode(cfg) -> str:
     """The kernel mode of cfg, chosen as ``pmpx``'s make_fused_chain
     chooses it: binary for N = 1, mp for depth 1, general otherwise."""
     return _mode_of(cfg.N, cfg.depth)
+
+
+def stamp_split(mode: str, stamps: torch.Tensor, steps: int) -> dict:
+    """Clocks per superstep of each phase, named for ``mode``'s walk, from
+    a ``stamps`` buffer that :func:`chain_chunk` filled over ``steps``
+    supersteps.  A walk slot past the mode's names is left out when it
+    holds no clocks and keeps its slot name when it does."""
+    walk = _WALK_PHASES[mode]
+    out = {}
+    for name, clocks in zip(STAMP_PHASES, stamps.tolist()):
+        if name.startswith("walk"):
+            i = int(name[4:])
+            if i < len(walk):
+                name = f"walk: {walk[i]}"
+            elif clocks == 0:
+                continue
+        out[name] = clocks / steps
+    return out
 
 
 def _mode_of(N: int, depth: int) -> str:
@@ -548,6 +589,7 @@ def chain_chunk(
     uin: Optional[torch.Tensor] = None,
     emit: str = "root",
     uemit: Optional[torch.Tensor] = None,
+    stamps: Optional[torch.Tensor] = None,
 ):
     """``steps`` supersteps from ``theta`` in ``mode`` (``binary``, ``mp``
     or ``general``; P = (N + 1)**depth): of one chain for theta (3,), or of
@@ -561,6 +603,9 @@ def chain_chunk(
     uin : (steps*17, L), or (C, steps*17, L), injected uniforms in (0, 1].
     emit : ``"root"``, or ``"all"`` (one chain, P <= 512) with
     uemit : (steps, L) slot uniforms when ``uin`` is given.
+    stamps : a contiguous int64 (len(STAMP_PHASES),) tensor on the card:
+        launch the stamped library's kernel instead, and write chain 0's
+        phase clocks (thread 0, summed over the supersteps) into it.
 
     ``emit="root"`` returns ``(trace, theta_out)``: trace (4, steps), or
     (C, 4, steps) for a farm, rows (beta0, beta1, sigma, selected node)
@@ -573,6 +618,12 @@ def chain_chunk(
     _check_mode(mode, P, depth, N)
     _check(xg, yg, theta, steps, P, seed, uin, emit, uemit)
     dev = xg.device
+    if stamps is not None and (
+            stamps.dtype != torch.int64 or stamps.device != dev
+            or dev.type != "cuda" or not stamps.is_contiguous()
+            or stamps.numel() != len(STAMP_PHASES)):
+        raise ValueError(f"stamps must be a contiguous int64 "
+                         f"({len(STAMP_PHASES)},) tensor on xg's CUDA device")
     farm = theta.dim() == 2
     emit_all = emit == "all"
     model = dict(depth=depth, n_data=n_data, temper=temper,
@@ -589,7 +640,7 @@ def chain_chunk(
         return fused_chain_ref(xg, yg, theta, uin, P=P, uemit=uemit, **model)
     if dev.type != "cuda":
         raise ValueError(f"chain_chunk runs on cuda or cpu, not {dev}")
-    lib = _build.load().lib
+    lib = _build.load(stamps=stamps is not None).lib
     C = theta.shape[0] if farm else 1
     rows = 8 if emit_all else 4
     trace = torch.empty(((C,) if farm else ()) + (rows, steps), device=dev)
@@ -610,7 +661,11 @@ def chain_chunk(
             lane_extent(P), base, depth, float(n_data), float(temper),
             float(step_size), denom, stream,
         )
-    if farm:
+        if stamps is not None and err == 0:
+            err = lib.pmpx_chain_stamps(stamps.data_ptr(), stream)
+    if stamps is not None:
+        name = STAMPED_KERNEL
+    elif farm:
         name = FARM_KERNEL
     else:
         name = (KERNEL_NAME_ALL if emit_all else KERNEL_NAME)[mode]

@@ -250,7 +250,7 @@ def _chip_smoke():
         ("binary", "all", 512, 1, 9, "kernel", 1, 1000, "imad", 1537,
          11 * 512 + 2 * 511),
         ("mp", "root", 1024, 1023, 1, "kernel", 1, 1000, "imad", 2049,
-         11 * 1024 + 1025),
+         11 * 1024),
         ("general", "all", 512, 7, 3, "kernel", 1, 1000, "imad", 1537,
          11 * 512 + (8 + 1) + (64 + 8) + (512 + 64)),
         ("binary", "root", 1024, 1, 10, "input", 1, 1000, "mufu", 0,

@@ -92,8 +92,10 @@ def test_fused_chain_kernel_rng_is_seeded(cuda):
 
 # (N, depth) of the flat-MP and general modes: the time grid's P = 4 and
 # P = 1024 flat cells, P = 200 (lanes above P), and general trees up to
-# conv_pmp's N = 7 x depth 3 and a base of 32
-NEW_MODES = [(3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2)]
+# conv_pmp's N = 7 x depth 3, a base of 32, and depths 4 and 5 (the
+# general kernel's instantiations are per depth)
+NEW_MODES = [(3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2), (3, 4),
+             (3, 5)]
 
 
 def _new_mode_kw(t, N, depth):
@@ -217,6 +219,49 @@ def test_fused_chain_second_launch_is_bit_equal(cuda, N, depth, emit):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
     assert len(set(first[0][0].tolist())) > 1  # the chain moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit", ["root", "all"])
+@pytest.mark.parametrize("rng", ["input", "kernel"])
+@pytest.mark.parametrize("N,depth", [(511, 1), (7, 3), (3, 4)])
+def test_fused_chain_stamped_library_is_bit_equal(cuda, N, depth, rng, emit):
+    """A mp and a general chunk run twice through the default library and
+    once through the stamped one (phase clocks): the traces, states and
+    emitted b0 are bit-equal, so the stamps change nothing they measure;
+    the phases that every superstep runs have clocks, and emit="root" has
+    no jump sum."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(N + depth)
+    x, y = make_synthetic_linreg(g, 20_000)
+    t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    kw = fc.chain_consts(t, PMPConfig(N=N, depth=depth, step_size=0.05,
+                                      trans_sigma=0.8))
+    steps, L = 60, fc.lane_extent(kw["P"])
+    if rng == "input":
+        kw["uin"] = 1.0 - torch.rand((steps * fc.U_ROWS, L), generator=g,
+                                     device=cuda)
+        if emit == "all":
+            kw["uemit"] = 1.0 - torch.rand((steps, L), generator=g,
+                                           device=cuda)
+    else:
+        kw["seed"] = torch.tensor([17], dtype=torch.int32, device=cuda)
+    th = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    runs = [fc.chain_chunk(t.x2d, t.y2d, th, steps=steps, emit=emit, **kw)
+            for _ in range(2)]
+    buf = torch.zeros(len(fc.STAMP_PHASES), dtype=torch.int64, device=cuda)
+    before = launches[fc.STAMPED_KERNEL]
+    runs.append(fc.chain_chunk(t.x2d, t.y2d, th, steps=steps, emit=emit,
+                               stamps=buf, **kw))
+    assert launches[fc.STAMPED_KERNEL] == before + 1
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+    split = fc.stamp_split(kw["mode"], buf, steps)
+    assert all(v >= 0 for v in split.values())
+    for phase in ("philox", "box_muller", "log_density", "weights_scan"):
+        assert split[phase] > 0
+    assert (split["jump"] > 0) == (emit == "all")
 
 
 @pytest.mark.gpu
