@@ -12,10 +12,13 @@ Phases, each printing its wall time:
 1. the kernels' build (``nvcc`` into ``pmpx_torch/_build/``), with the
    registers, shared memory and spills ``ptxas`` reports (and, by name,
    those of every chain kernel: ``chain_{binary,mp}_kernel<kAll>`` and
-   ``chain_general_kernel<kAll, depth>``), and the tensor-core instructions in
-   ``lstm_fused_kernel``'s SASS (``cuobjdump``);
+   ``chain_general_kernel<kAll, depth>``), the tensor-core instructions in
+   ``lstm_fused_kernel``'s SASS (``cuobjdump``), and ``linreg_rss``'s
+   launch at the sweep's shape (registers, shared memory, cluster size,
+   ``cudaOccupancyMaxActiveClusters``);
 2. ``linreg_rss`` against its plain version at the shapes the sweep
-   paths give it;
+   paths give it and at the edges of its launch geometry, over every
+   padded slot and over the real points only (``n_valid``);
 3. ``fused_chain`` (injected uniforms) against its plain version, step by
    step from the kernel's own state; 3b. the same for its flat-MP and
    general modes; 3c. the same for every fused cell of the time grid, on
@@ -116,6 +119,10 @@ NEW_MODES = ((3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2), (3, 4),
 # at n = 100,000
 RSS_SHAPES = ((1024, 100_000), (1024, 500), (4, 100_000), (4, 500),
               (200, 100_000), (8, 5000), (512, 100_000), (8, 100_000))
+# and the edges of its launch geometry: cluster sizes 1 to 8, P above one
+# wave's width, n with and without a tail of < 4 points
+RSS_EDGE_P = (8, 16, 64, 128, 576, 1024, 1088, 2048)
+RSS_EDGE_N = (1, 127, 500, 16_384, 100_000, 250_000)
 # phase 3c: (N, depth) of the time grid's fused cells: PMP P = 4 (depth 2,
 # lanes above P) and P = 1024, MP P = 4 and P = 1024, conv_pmp's N = 7 x 3;
 # and of the ESS protocol's root cells (phase 9, on its target): binary and
@@ -568,7 +575,7 @@ def main() -> int:
     from pmpx_torch.parallel import chains as farm_mod
     from pmpx_torch.kernels import launches, reset_launches
     from pmpx_torch.kernels.linreg import (
-        batched_rss, batched_rss_ref, pad_proposals,
+        batched_rss, batched_rss_ref, kernel_info, pad_proposals,
     )
     from pmpx_torch.samplers import pmp
     from pmpx_torch.targets.linreg import make_synthetic_linreg, pad_to_grid
@@ -613,27 +620,66 @@ def main() -> int:
             require(got["hmma"] + got["hgmma"] > 0
                     and all(kind in op for op in got["opcodes"]),
                     f"tensor-core {kind[1:]} MMA in lstm_fused_kernel<{tag}>")
+        # linreg_rss's launch at the sweep paths' n = 100,000: one cluster
+        # launch whose blocks are all resident at once, one per SM
+        for P_r in (1024, 512, 8):
+            info = kernel_info(P_r, 100_000)
+            print(f"rss_kernel at P={P_r}, n=100000: "
+                  f"{info['registers']} registers, "
+                  f"{info['static_smem_bytes']} bytes of static shared "
+                  f"memory, {info['dynamic_smem_bytes']} dynamic; "
+                  f"{info['clusters']} clusters of {info['cluster_size']} "
+                  f"blocks of {info['threads']} threads, "
+                  f"cudaOccupancyMaxActiveClusters {info['max_clusters']}, "
+                  f"{info['blocks_per_sm']} block(s) an SM, "
+                  f"{info['sms']} SMs")
+            require(info["blocks_per_sm"] == 1
+                    and info["clusters"] <= info["max_clusters"],
+                    f"linreg_rss P={P_r}: one wave, one block an SM")
+            if P_r >= 512:
+                require(info["clusters"] * info["cluster_size"] >= 128,
+                        f"linreg_rss P={P_r} on >= 128 SMs")
 
     with Phase("2 linreg_rss vs plain"):
         rss_err = 0.0
-        for P, n in RSS_SHAPES:
+
+        def rss_case(P, n, seed, valid):
+            """(max|err|, max|rss|) of the kernel against its plain version
+            over every padded slot, or the first n points with ``valid``."""
             gen = torch.Generator(device=dev)
-            gen.manual_seed(100 + P)
+            gen.manual_seed(seed)
             x, y = make_synthetic_linreg(gen, n)
             x2d, y2d = pad_to_grid(x), pad_to_grid(y)
             b0 = -1.0 + 0.3 * torch.randn(P, generator=gen, device=dev)
             b1 = 2.0 + 0.3 * torch.randn(P, generator=gen, device=dev)
             b0p, b1p, _ = pad_proposals(b0, b1)
-            got = batched_rss(b0p, b1p, x2d, y2d)
-            want = batched_rss_ref(b0p, b1p, x2d, y2d)
+            kw = {"n_valid": n} if valid else {}
+            got = batched_rss(b0p, b1p, x2d, y2d, **kw)
+            want = batched_rss_ref(b0p, b1p, x2d, y2d, **kw)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            print(f"P={P} (padded {b0p.shape[0]}), n={n} "
-                  f"({x2d.numel()} slots): max|err| {err:.6g}, "
-                  f"max|rss| {scale:.6g}, rel {err / scale:.3g}")
-            require(err <= RSS_TOL * scale, f"linreg_rss P={P} n={n}")
-            rss_err = max(rss_err, err)
+            return ((got - want).abs().max().item(),
+                    want.abs().max().item(), b0p.shape[0], x2d.numel())
+
+        for P, n in RSS_SHAPES:
+            for valid in (False, True):
+                err, scale, Pp, slots = rss_case(P, n, 100 + P, valid)
+                print(f"P={P} (padded {Pp}), n={n} ({slots} slots, "
+                      f"{n if valid else slots} read): max|err| {err:.6g}, "
+                      f"max|rss| {scale:.6g}, rel {err / scale:.3g}")
+                require(err <= RSS_TOL * scale,
+                        f"linreg_rss P={P} n={n} n_valid={valid}")
+                rss_err = max(rss_err, err)
+        worst = (0.0, None)
+        for P in RSS_EDGE_P:
+            for n in RSS_EDGE_N:
+                for valid in (False, True):
+                    err, scale, _, _ = rss_case(P, n, 1000 + P + n, valid)
+                    require(err <= RSS_TOL * scale,
+                            f"linreg_rss edge P={P} n={n} n_valid={valid}")
+                    worst = max(worst, (err / scale, (P, n, valid)))
+        print(f"edges: {len(RSS_EDGE_P) * len(RSS_EDGE_N) * 2} cases, "
+              f"largest max|err|/max|rss| {worst[0]:.3g} at (P, n, n_valid) "
+              f"{worst[1]}")
 
     target = bench.bench_target(dev)
     cfg = bench.bench_config()
@@ -869,18 +915,40 @@ def main() -> int:
         b0 = (th[0] + 0.05 * torch.randn(P, generator=g, device=dev))
         b1 = (th[1] + 0.05 * torch.randn(P, generator=g, device=dev))
         x2d, y2d = target.x2d, target.y2d
-        n_slots = x2d.numel()
-        ms = event_ms(lambda: batched_rss(b0, b1, x2d, y2d), 200)
-        plain_ms = event_ms(lambda: batched_rss_ref(b0, b1, x2d, y2d), 5)
-        b_ms, b_by = bound(5.0 * P * n_slots, 4.0 * (2 * n_slots + 3 * P))
+        # the sweep's call reads the n real points; the padded contract
+        # (every slot) beside it.  ms: the device's time (a CUDA graph of
+        # 200 calls), the eager 200-call figure and the host's us beside it
+        rss_t = bench.rss_times(b0, b1, x2d, y2d, n_valid=target.n)
+        rss_pad = bench.rss_times(b0, b1, x2d, y2d)
+        print(f"linreg_rss P={P}: n_valid={target.n} {json.dumps(rss_t)}; "
+              f"every slot {json.dumps(rss_pad)}")
+        # counted in a CUDA graph of one call: a profiler trace may drop a
+        # kernel's record (199 of 200 after the sweep, on an H100)
+        for t in (rss_t, rss_pad):
+            require(t["kernels_per_call"] == 1
+                    and t["other_nodes_per_call"] == 0
+                    and t["own_kernels"] == ["rss_kernel"],
+                    "one CUDA kernel a linreg_rss call")
+        plain_ms = event_ms(lambda: batched_rss_ref(
+            b0, b1, x2d, y2d, n_valid=target.n), 5)
+        b_ms, b_by = bound(5.0 * P * target.n,
+                           4.0 * (2 * target.n + 3 * P))
+        b_pad, _ = bound(5.0 * P * x2d.numel(),
+                         4.0 * (2 * x2d.numel() + 3 * P))
         kernels.append({
             "name": "linreg_rss", "route": "cuda",
             "source": "pmpx_torch/csrc/linreg_rss.cu",
             "replaces": "pmpx/kernels/linreg.py:54",
             "launches": sweep_counts["linreg_rss"],
             "max_abs_err": rss_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "ms": rss_t["device_us"] / 1e3, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "busy_ms": rss_t["busy_us"] / 1e3,
+            "eager_ms": rss_t["eager_us"] / 1e3,
+            "host_us": rss_t["host_us"], "points_read": target.n,
+            "ms_every_slot": rss_pad["device_us"] / 1e3,
+            "bound_ms_every_slot": b_pad, "P": P,
+            "geometry": kernel_info(P, target.n),
         })
 
         # fused_chain: one launch of the fused path's chunk

@@ -49,8 +49,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "pmpx_linreg_rss": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "pmpx_linreg_rss_tile": [],
+    "pmpx_linreg_rss": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "pmpx_linreg_rss_info": [_I, _I, _P],
     "pmpx_fused_chain": (
         [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
          _I, _F, _F, _F, _F, _P]

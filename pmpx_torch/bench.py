@@ -12,7 +12,8 @@ step 0.02, transition sigma 1.0, ``selection="all_first"``, theta0 =
 Both are timed with CUDA events after a warm-up.  Run
 ``python -m pmpx_torch.bench`` on a machine with a CUDA card; it prints
 one JSON line (``--profile`` first prints a torch.profiler breakdown of
-each path).  The A100 figure of the reference implementation
+each path, and ``--rss`` one line per ``RSS_TIMED`` shape of one
+``linreg_rss`` call's times, :func:`rss_times`, and its launch).  The A100 figure of the reference implementation
 (42096.793 us GPU + 2041.279 us host per iteration) is printed beside the
 card's numbers as that: the reference's, on an A100.
 """
@@ -20,6 +21,7 @@ card's numbers as that: the reference's, on an A100.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -31,13 +33,15 @@ import torch
 from pmpx_torch import _build
 from pmpx_torch._device import resolve_device
 from pmpx_torch.kernels import fused_chain as fc
+from pmpx_torch.kernels.linreg import batched_rss, kernel_info, pad_proposals
 from pmpx_torch.samplers import pmp
 from pmpx_torch.samplers.base import run_chain
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
 
 __all__ = [
     "A100_REFERENCE_US", "bench_target", "bench_config", "theta0",
-    "time_sweep", "time_fused", "least_squares", "profile_path", "main",
+    "time_sweep", "time_fused", "least_squares", "profile_path",
+    "graph_us", "graph_nodes", "rss_inputs", "rss_times", "main",
 ]
 
 A100_REFERENCE_US = 42096.793 + 2041.279
@@ -47,6 +51,13 @@ DEPTH = 10
 SWEEP_ITERS = 2000
 FUSED_ITERS = 100_000
 FUSED_CHUNK = 1000
+# --rss: (P, n) of one linreg_rss call: the sweep cell's P = 1024, the ESS
+# protocol's sweep cells (P = 512, 8) at n = 100,000, and the time grid's
+# n = 500 cells (P = 1024, and P = 4 padded to 8)
+RSS_TIMED = ((1024, 100_000), (512, 100_000), (8, 100_000), (1024, 500),
+             (8, 500))
+RSS_CALLS = 200  # calls per graph, per eager run and per profiler trace
+RSS_HOST_CALLS = 1000  # calls in the host's count
 
 
 def bench_config() -> pmp.PMPConfig:
@@ -129,6 +140,7 @@ def least_squares(target):
 
 
 _OWN = "(anonymous namespace)::"
+_CU_GRAPH_NODE_TYPE_KERNEL = 0  # CUgraphNodeType
 _GLOBAL = re.compile(
     r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
 
@@ -187,6 +199,129 @@ def profile_path(fn) -> dict:
     }
 
 
+def graph_us(call) -> float:
+    """µs of one ``call()`` on the card: RSS_CALLS calls captured in one
+    CUDA graph and replayed between two CUDA events."""
+    call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # warm-up on a side stream, as graph capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(RSS_CALLS):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    _, ms = _elapsed_ms(graph.replay)
+    return ms * 1e3 / RSS_CALLS
+
+
+def graph_nodes(call) -> dict:
+    """What one ``call()`` puts on its stream, read from the node list of a
+    CUDA graph of it (the driver's ``cuGraphGetNodes``): ``kernels``, its
+    kernel nodes, and ``other``, every other node (copies, memsets,
+    events).  Exact where a profiler trace may drop an activity record."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
+    return {"kernels": kernels, "other": count.value - kernels}
+
+
+def rss_times(b0, b1, x2d, y2d, **kw) -> dict:
+    """Times of one ``batched_rss(b0, b1, x2d, y2d, **kw)`` call on the
+    card, in µs: ``device_us``, RSS_CALLS calls captured in one CUDA graph
+    and replayed between two CUDA events (the device's time, launch gaps
+    included, with no host in the way); ``busy_us`` and
+    ``traced_kernels_per_call``, the port's own kernels' summed durations
+    and the kernels' count in a torch.profiler trace of RSS_CALLS eager
+    calls (a trace may drop a record); ``kernels_per_call`` and
+    ``other_nodes_per_call``, exact, from :func:`graph_nodes`; ``eager_us``,
+    RSS_CALLS eager calls between two CUDA events (the pace the host's
+    wrapper sets when it is slower than the card); ``host_us``, the host's
+    clock around RSS_HOST_CALLS calls with no synchronisation."""
+
+    def call():
+        return batched_rss(b0, b1, x2d, y2d, **kw)
+
+    def calls():
+        for _ in range(RSS_CALLS):
+            call()
+
+    call()
+    torch.cuda.synchronize()
+    _, eager_ms = _elapsed_ms(calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RSS_HOST_CALLS):
+        call()
+    host_us = (time.perf_counter() - t0) * 1e6 / RSS_HOST_CALLS
+    torch.cuda.synchronize()
+    device_us = graph_us(call)
+    nodes = graph_nodes(call)
+    prof = profile_path(calls)
+    return {
+        "device_us": device_us,
+        "busy_us": sum(prof["own"].values()) / RSS_CALLS,
+        "kernels_per_call": nodes["kernels"],
+        "other_nodes_per_call": nodes["other"],
+        "traced_kernels_per_call": prof["kernels"] / RSS_CALLS,
+        "own_kernels": sorted(prof["own"]),
+        "eager_us": eager_ms * 1e3 / RSS_CALLS,
+        "host_us": host_us,
+    }
+
+
+def rss_inputs(P, n, device):
+    """The target over n synthetic points and P proposals around the
+    posterior, padded as ``batched_rss`` takes them (seed 100 + P)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(100 + P)
+    x, y = make_synthetic_linreg(gen, n)
+    t = BayesLinReg(x, y, method="sweep", device=device)
+    b0, b1, _ = pad_proposals(
+        -1.0 + 0.3 * torch.randn(P, generator=gen, device=device),
+        2.0 + 0.3 * torch.randn(P, generator=gen, device=device))
+    return t, b0, b1
+
+
+def _rss_lines(device) -> None:
+    """``--rss``: one JSON line per RSS_TIMED shape, over every padded slot
+    and over the real points only, with the launch's geometry."""
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip().splitlines()
+    card = {"device": torch.cuda.get_device_name(0),
+            "power": smi[0] if smi else None}
+    for P, n in RSS_TIMED:
+        t, b0, b1 = rss_inputs(P, n, device)
+        for points in (t.x2d.numel(), n):
+            info = kernel_info(b0.shape[0], points)
+            print(json.dumps({
+                "rss": f"P{P}_n{n}", "P": P, "padded_P": int(b0.shape[0]),
+                "n": n, "slots": t.x2d.numel(), "points_read": points,
+                "clusters": info["clusters"],
+                "cluster_size": info["cluster_size"],
+                **rss_times(b0, b1, t.x2d, t.y2d, n_valid=points), **card}),
+                flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m pmpx_torch.bench")
     parser.add_argument(
@@ -194,10 +329,16 @@ def main(argv=None):
         help="also trace 20 sweep supersteps and one fused launch of "
              "the cell, of flat MP (P = 1024) and of the N = 7 x depth 3 "
              "tree with torch.profiler and print where the time goes")
+    parser.add_argument(
+        "--rss", action="store_true",
+        help="also print the times of one linreg_rss call (rss_times) at "
+             "each RSS_TIMED shape")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("pmpx_torch.bench: no CUDA device")
     t0 = time.perf_counter()
+    if args.rss:
+        _rss_lines(torch.device("cuda"))
     target = bench_target()
     cfg = bench_config()
     sweep_us, _ = time_sweep(target, cfg)

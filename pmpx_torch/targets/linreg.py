@@ -4,9 +4,10 @@ of ``pmpx/targets/linreg.py``).
 State is theta = (beta0, beta1, sigma); the likelihood uses sigma**2.
 Three exact evaluation strategies:
 
-* ``"sweep"`` — the O(P*n) data sweep: the CUDA kernel of
-  ``pmpx_torch.kernels.linreg`` on the card, its plain version on the CPU
-  (``pmpx``'s ``"pallas"``/``"xla"``, which the port takes as names of
+* ``"sweep"`` — the O(P*n) data sweep over the n real points (the zero
+  padding is never read, so nothing is subtracted for it): the CUDA kernel
+  of ``pmpx_torch.kernels.linreg`` on the card, its plain version on the
+  CPU (``pmpx``'s ``"pallas"``/``"xla"``, which the port takes as names of
   ``"sweep"``);
 * ``"fused"`` — the five sufficient statistics recomputed in f32 from the
   padded data on every call, then O(P);
@@ -94,11 +95,9 @@ class BayesLinReg:
         self.x = _f32(x, self.device)
         self.y = _f32(y, self.device)
         self.n = int(self.x.shape[0])
-        # padded lane-major layout for the sweep; each zero-padded point
-        # contributes (0 - b0 - 0)^2 = b0^2, subtracted in _rss
+        # padded lane-major layout; the sweep reads the first n points only
         self.x2d = pad_to_grid(self.x)
         self.y2d = pad_to_grid(self.y)
-        self.pad_count = int(self.x2d.numel() - self.n)
         xh = self.x.double()
         yh = self.y.double()
         self.stats = torch.stack(
@@ -125,8 +124,7 @@ class BayesLinReg:
 
     def _rss(self, b0, b1):
         if self.method == "sweep":
-            raw = _k.batched_rss(b0, b1, self.x2d, self.y2d)
-            return raw - self.pad_count * b0 * b0
+            return _k.batched_rss(b0, b1, self.x2d, self.y2d, n_valid=self.n)
         if self.method == "fused":
             x, y = self.x2d, self.y2d
             stats = (

@@ -16,7 +16,7 @@ torch.set_num_threads(2)
 from pmpx_torch.kernels import fused_chain as fc  # noqa: E402
 from pmpx_torch.kernels import launches  # noqa: E402
 from pmpx_torch.kernels.linreg import (  # noqa: E402
-    batched_rss, batched_rss_ref, pad_proposals,
+    batched_rss, batched_rss_ref, kernel_info, pad_proposals,
 )
 from pmpx_torch.samplers.pmp import PMPConfig  # noqa: E402
 from pmpx_torch.targets.linreg import (  # noqa: E402
@@ -31,23 +31,141 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("P,n", [(1024, 100_000), (200, 20_000), (8, 5000),
-                                 (64, 300)])
-def test_linreg_rss_kernel_matches_plain(cuda, P, n):
-    g = torch.Generator(device=cuda)
-    g.manual_seed(P)
+# linreg_rss: chip_smoke.py's RSS_SHAPES (the shapes the sweep paths give
+# the kernel) and two more
+RSS_SHAPES = [(1024, 100_000), (1024, 500), (4, 100_000), (4, 500),
+              (200, 100_000), (8, 5000), (512, 100_000), (8, 100_000),
+              (200, 20_000), (64, 300)]
+
+
+def _rss_inputs(device, P, n, seed):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
     x, y = make_synthetic_linreg(g, n)
     x2d, y2d = pad_to_grid(x), pad_to_grid(y)
-    b0, b1, _ = pad_proposals(torch.randn(P, generator=g, device=cuda),
-                              torch.randn(P, generator=g, device=cuda))
+    b0, b1, _ = pad_proposals(torch.randn(P, generator=g, device=device),
+                              torch.randn(P, generator=g, device=device))
+    return b0, b1, x2d, y2d
+
+
+def _rss_bound(b0, b1, x2d, y2d, n_valid):
+    """The magnitude of the sum's terms, sum_i (|y| + |b0| + |b1 x|)^2: a
+    bound on what f32 rounding can move; within a small factor of the
+    rss itself when the sum has many terms."""
+    return batched_rss_ref(-b0.abs(), b1.abs(), -x2d.abs(), y2d.abs(),
+                           n_valid=n_valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [False, True])
+@pytest.mark.parametrize("P,n", RSS_SHAPES)
+def test_linreg_rss_kernel_matches_plain(cuda, P, n, valid):
+    b0, b1, x2d, y2d = _rss_inputs(cuda, P, n, P)
+    kw = {"n_valid": n} if valid else {}
     before = launches["linreg_rss"]
-    got = batched_rss(b0, b1, x2d, y2d)
+    got = batched_rss(b0, b1, x2d, y2d, **kw)
     assert launches["linreg_rss"] == before + 1
-    want = batched_rss_ref(b0, b1, x2d, y2d)
+    want = batched_rss_ref(b0, b1, x2d, y2d, **kw)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-    again = batched_rss(b0, b1, x2d, y2d)
+    again = batched_rss(b0, b1, x2d, y2d, **kw)
     assert torch.equal(got, again)  # no atomics: bit for bit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [False, True])
+@pytest.mark.parametrize("n", [1, 127, 500, 16_384, 100_000, 250_000])
+@pytest.mark.parametrize("P", [8, 16, 64, 128, 576, 1024, 1088, 2048])
+def test_linreg_rss_geometry_edges(cuda, P, n, valid):
+    """The cluster sizes the launch picks (1 over few points or at P >= 576,
+    up to 8 at small P over many points), several waves above P = 1056,
+    and the tails: rtol 1e-5 for every sum of many terms; a single point
+    (n = 1), where y - b0 - b1 x can cancel and the kernel's FMA rounds
+    otherwise than the plain version, within 1e-5 of its terms'
+    magnitude."""
+    b0, b1, x2d, y2d = _rss_inputs(cuda, P, n, 1000 + P + n)
+    kw = {"n_valid": n} if valid else {}
+    got = batched_rss(b0, b1, x2d, y2d, **kw)
+    want = batched_rss_ref(b0, b1, x2d, y2d, **kw)
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * _rss_bound(b0, b1, x2d, y2d, kw.get(
+        "n_valid"))).all())
+    if not valid or n > 1:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [False, True])
+@pytest.mark.parametrize("P,n", [(1024, 100_000), (8, 100_000), (576, 127),
+                                 (2048, 250_000)])
+def test_linreg_rss_repeats_bit_for_bit(cuda, P, n, valid):
+    b0, b1, x2d, y2d = _rss_inputs(cuda, P, n, 7)
+    kw = {"n_valid": n} if valid else {}
+    first = batched_rss(b0, b1, x2d, y2d, **kw)
+    for _ in range(4):
+        assert torch.equal(batched_rss(b0, b1, x2d, y2d, **kw), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,n", [(1024, 100_000), (8, 500)])
+def test_linreg_rss_is_one_kernel(cuda, P, n):
+    """One CUDA kernel a call, and it is the port's own (torch.profiler)."""
+    from pmpx_torch.bench import profile_path
+
+    b0, b1, x2d, y2d = _rss_inputs(cuda, P, n, 3)
+    batched_rss(b0, b1, x2d, y2d, n_valid=n)
+    prof = profile_path(lambda: batched_rss(b0, b1, x2d, y2d, n_valid=n))
+    assert prof["kernels"] == 1
+    assert [k.split("<")[0] for k in prof["own"]] == ["rss_kernel"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,n", [(1024, 100_000), (512, 100_000), (8, 500),
+                                 (2048, 250_000)])
+@pytest.mark.parametrize("valid", [False, True])
+def test_linreg_rss_graph_holds_one_kernel(cuda, P, n, valid):
+    """A CUDA graph of one call holds one node, a kernel node, with
+    n_valid on and off, in one wave and (P = 2048) in several."""
+    from pmpx_torch.bench import graph_nodes
+
+    b0, b1, x2d, y2d = _rss_inputs(cuda, P, n, 3)
+    kw = {"n_valid": n} if valid else {}
+    assert graph_nodes(lambda: batched_rss(b0, b1, x2d, y2d, **kw)) == {
+        "kernels": 1, "other": 0}
+
+
+@pytest.mark.gpu
+def test_linreg_rss_geometry_fills_the_card(cuda):
+    """At the sweep's shapes every block is resident at once, one per SM,
+    on at least 128 SMs."""
+    for P in (1024, 512):
+        info = kernel_info(P, 100_000)
+        assert info["blocks_per_sm"] == 1
+        assert info["clusters"] <= info["max_clusters"]
+        assert 128 <= info["clusters"] * info["cluster_size"] <= info["sms"]
+        assert 1 <= info["cluster_size"] <= 8
+
+
+@pytest.mark.gpu
+def test_linreg_rss_cuda_graph_replays(cuda):
+    """A CUDA graph of the call replays to the eager result, and to the
+    new result after its inputs change in place."""
+    b0, b1, x2d, y2d = _rss_inputs(cuda, 1024, 100_000, 5)
+    eager = batched_rss(b0, b1, x2d, y2d, n_valid=100_000)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        batched_rss(b0, b1, x2d, y2d, n_valid=100_000)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = batched_rss(b0, b1, x2d, y2d, n_valid=100_000)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    b0.add_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, batched_rss(b0, b1, x2d, y2d, n_valid=100_000))
 
 
 @pytest.mark.gpu

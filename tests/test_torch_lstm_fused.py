@@ -231,5 +231,5 @@ def test_profiles_name_the_ports_kernels():
     from pmpx_torch import bench
 
     assert bench._own_kernels() == {
-        "rss_partial_kernel", "rss_reduce_kernel", "chain_binary_kernel",
-        "chain_mp_kernel", "chain_general_kernel", "lstm_fused_kernel"}
+        "rss_kernel", "chain_binary_kernel", "chain_mp_kernel",
+        "chain_general_kernel", "lstm_fused_kernel"}
