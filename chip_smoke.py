@@ -25,21 +25,24 @@ Phases, each printing its wall time:
    the grid's own data, and for the ESS protocol's root cells on its
    target; 3d. the same for ``emit="all"`` in its three modes, slot by
    slot; 3e. the chain farm (C chains in one launch) bit-equal to C
-   single-chain launches, and the ESS protocol's farm cell, chain by
-   chain, against the plain version; 3f. ``lstm_fused`` against its plain
-   version at the MNIST-LSTM protocol's shapes in f32 and bf16, and a
-   replay of PMP supersteps at full batch, kernel path against plain path;
+   single-chain launches, and the ESS protocol's farm cell and the
+   multichain sweep's farm cells (flat MP with N = P, binary depths 4, 6,
+   8), chain by chain, against the plain version; 3f. ``lstm_fused``
+   against its plain version at the MNIST-LSTM protocol's shapes in f32
+   and bf16, and a replay of PMP supersteps at full batch, kernel path
+   against plain path;
 4. the sweep main path of the benchmark cell (``pmpx_torch.bench``), with
    its launch count and a posterior check;
 5. the fused main path, likewise;
 6. each kernel's time beside its plain version's and its bound (the
    launches of each from the time grid of phase 7, the ESS protocol of
-   phase 9 and the MNIST path of phase 10; a chain kernel's bound is a
-   floor one SM can meet, :func:`chain_sm_bound`), ``lstm_fused``'s beside P
-   calls of cuDNN's LSTM (its bf16 weights flattened by hand, and as torch
-   leaves them) and its tensor-core and transcendental bounds, the farm's
-   supersteps per second against its chain count, each chain kernel's
-   µs per superstep against P (:func:`chain_p_sweep`), and where a
+   phase 9, the MNIST path of phase 10 and the experiments of phase 11; a
+   chain kernel's bound is a floor one SM can meet,
+   :func:`chain_sm_bound`), ``lstm_fused``'s beside P calls of cuDNN's
+   LSTM (its bf16 weights flattened by hand, and as torch leaves them)
+   and its tensor-core and transcendental bounds, the farm's supersteps
+   per second against its chain count, each chain kernel's µs per
+   superstep against P (:func:`chain_p_sweep`), and where a
    superstep's clocks go, phase by phase, in the stamped chain library
    (:func:`stamp_splits`);
 7. the time grid of the reference (``pmpx_torch.experiments.
@@ -55,7 +58,17 @@ Phases, each printing its wall time:
    scale: LSTM PMP, MP and MH through the ``lstm_fused`` kernel and FC PMP
    through the generic path, ``num_steps`` cut (the one reduction), with
    the kernel-path density at the warm start held to the generic path's,
-   and a profiler trace of a few LSTM and FC PMP supersteps.
+   and a profiler trace of a few LSTM and FC PMP supersteps;
+11. the linreg and analytic experiments at the paper's widths (n =
+   100,000): ``convergence`` (MH, MP, PMP through ``linreg_rss``, tail
+   means held to the least-squares fit), ``lb_grid``, ``correlation``
+   (``pmpx``'s committed run of each dim's deepest cell within 4 sd of
+   the port's runs at eight seeds),
+   ``error_boxplot``, ``banana``, ``skewness`` (64 chains in one batch, one
+   ``linreg_rss`` launch a superstep), ``multichain``'s fused farm sweep
+   (split-R-hat of every cell) and a chain-batched run, and the native
+   runtime (built, a trace read back bit-equal); the step-count cuts listed
+   in its JSON line.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -116,9 +129,12 @@ NEW_MODES = ((3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2), (3, 4),
 # phase 2: (P, n) of linreg_rss: the bench cell's P = 1024 and the time
 # grid's P = 4 (padded to 8) and P = 1024 at n = 500 and 100,000; P = 200
 # and P = 8 at other sizes; the ESS protocol's sweep cells, P = 512 and 8
-# at n = 100,000
+# at n = 100,000; phase 11's at n = 100,000: MH's 2 states (convergence,
+# lb_grid), lb_grid's 7 x 2 tree and multichain's 8 chains of 8 (64), and
+# skewness' 64 chains of 8 (512)
 RSS_SHAPES = ((1024, 100_000), (1024, 500), (4, 100_000), (4, 500),
-              (200, 100_000), (8, 5000), (512, 100_000), (8, 100_000))
+              (200, 100_000), (8, 5000), (512, 100_000), (8, 100_000),
+              (2, 100_000), (64, 100_000))
 # and the edges of its launch geometry: cluster sizes 1 to 8, P above one
 # wave's width, n with and without a tail of < 4 points
 RSS_EDGE_P = (8, 16, 64, 128, 576, 1024, 1088, 2048)
@@ -151,6 +167,16 @@ FARM_C = 4
 FARM_STEPS = 1000
 FARM_SHAPES = ((1, 3), (1, 9), (511, 1))
 FARM_COUNTS = (1, 8, 32, 132, 264)
+# and phase 11's multichain sweep cells on its target (n = 100,000, temper
+# 50/n, step 0.05, pmpx's overdispersed starts) at FARM_C chains, on
+# injected uniforms against the plain version, with phase 3's gates: flat
+# MP with N = P (P + 1 = 9 ... 513 states) and the binary depths 4, 6 and 8
+# that no other phase holds
+MC_N = 100_000
+MC_STEP = 0.05
+MC_STEPS = 5000  # pmpx's sweep default (run()'s own default is 800)
+MC_FARM_SHAPES = tuple((P, 1) for P in (8, 16, 32, 64, 128, 256, 512)) + (
+    (1, 4), (1, 6), (1, 8))
 # phase 9: the ESS protocol at the paper's n = 100,000; cut: 20,000 steps
 # (the paper's 1,000,000) with its burn-in of 2,000; the superstep path's
 # emit-all cells at P = 8 and 512 only, 1000 steps with a burn-in of 200
@@ -187,6 +213,28 @@ LSTM_LIB_TOL = 1e-4
 MNIST_CELLS = (("LSTM", "pmp", 300), ("LSTM", "mp", 300), ("LSTM", "mh", 600),
                ("FC", "pmp", 600))
 MNIST_PROFILE = 5  # supersteps in each profiler trace of phase 10
+# phase 11: the linreg and analytic experiments at the paper's widths
+# (n = 100,000, the protocols' N, depth, P, dims and chain counts); the
+# cuts are step counts only: lb_grid's num_steps (the paper's 2500),
+# error_boxplot's number_sample (1000), banana's num_steps (50,000),
+# skewness' num_steps (100,000) with its checkpoints scaled alike
+LB_STEPS = 1000
+ERR_SAMPLES = 200
+BANANA_STEPS = 5000
+SKEW_STEPS = 5000
+SKEW_MARKS = (250, 1000, 2500, 5000)  # the paper's 5k, 20k, 50k, 100k / 20
+MC_RHAT_MAX = 1.05  # every coordinate of every multichain sweep cell
+# correlation: pmpx's committed run (seed 0) as one draw of the port's law.
+# Each dim's depth-5 pooled mean at chain_len 250 lies within CORR_Z sd of
+# the mean of the port's runs at seeds 0..CORR_SEEDS-1, the sd widened by
+# sqrt(1 + 1/CORR_SEEDS) (a prediction interval); both chains start at 2.5
+# and share the transient's bias, which at d = 160 is most of the value
+CORR_Z, CORR_SEEDS = 4.0, 8
+# pmpx's committed run of the same protocol: each dim's depth-5 pooled
+# mean at chain_len 250 (artifacts/correlation/dimension_chains_parallel.csv)
+CORR_PMPX = {10: 0.0197143517434597, 20: 0.13868094980716705,
+             40: 0.2536238133907318, 80: 0.407172292470932,
+             160: 0.8322762846946716}
 # phase 6's P sweeps on the benchmark cell's data: one SWEEP_STEPS-superstep
 # launch per (N, depth), each timed over SWEEP_REPS, emit="all" up to its
 # 512-lane cap.  binary: depths 1-10 (all 1-9); flat MP: P = 4 ... 1024
@@ -539,6 +587,60 @@ def chain_vs_plain(fc, label, target, theta0, consts, seed, steps=100,
     return err
 
 
+def farm_vs_plain(fc, farm_mod, label, target, cfg, theta, seed) -> float:
+    """One FARM_STEPS-superstep launch of a farm of len(theta) chains of
+    cfg over ``target`` on injected uniforms, each chain replayed step by
+    step against the plain version from its own states.  Requires one
+    launch, CHAIN_AGREE of each chain's selections equal and the states
+    within CHAIN_ATOL where they are; returns that max |err|."""
+    from pmpx_torch.kernels import launches
+
+    dev = theta.device
+    C = theta.shape[0]
+    kw = fc.chain_consts(target, cfg)
+    farm = farm_mod.make_chain_farm_fused(target, cfg, FARM_STEPS,
+                                          chunk=FARM_STEPS, rng="input")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    uin = 1.0 - torch.rand(
+        (1, C, FARM_STEPS * fc.U_ROWS, fc.lane_extent(kw["P"])),
+        generator=gen, device=dev)
+    before = launches[fc.FARM_KERNEL]
+    roots = farm(farm_mod.chain_generators(seed, C, dev), theta, uin=uin)
+    require(launches[fc.FARM_KERNEL] == before + 1,
+            f"{label}: the farm in one launch")
+    worst = 0.0
+    for c in range(C):
+        agree, err, misses = fc.replay_roots_against_plain(
+            target.x2d, target.y2d, theta[c], uin[0, c], roots[c], **kw)
+        for t, k, kk, u, lo, hi in misses:
+            print(f"{label} chain {c} step {t}: plain picks {k}, kernel "
+                  f"{kk}; u = {u:.9g}, plain cdf[k-1], cdf[k] = "
+                  f"{lo:.9g}, {hi:.9g}")
+        print(f"{label} of {C}, chain {c} (P={kw['P']}): "
+              f"{agree}/{FARM_STEPS} selections agree with the plain "
+              f"version; max|err| of the state where they do: {err:.3g}")
+        require(agree >= CHAIN_AGREE * FARM_STEPS,
+                f"{label} chain {c} selections")
+        require(err <= CHAIN_ATOL, f"{label} chain {c} trace atol")
+        worst = max(worst, err)
+    return worst
+
+
+def tail_check(name, means, target, bench) -> dict:
+    """Tail means of (b0[, b1]) within 4 posterior sd of the least-squares
+    fit of ``target``'s data; returns the |z| by coordinate."""
+    ls, sd = bench.least_squares(target)
+    k = len(means)
+    z = ((torch.tensor(means, dtype=torch.float64) - ls[:k]) / sd[:k]).abs()
+    print(f"{name}: tail mean {list(means)}, least squares "
+          f"{ls[:k].tolist()}, posterior sd {sd[:k].tolist()}, |z| "
+          f"{z.tolist()}")
+    require(all(math.isfinite(m) for m in means), f"{name}: finite means")
+    require(bool((z < 4.0).all()), f"{name}: mean within 4 sd of the fit")
+    return {"z": z.tolist()}
+
+
 def posterior_check(name, trace, burn, target, bench) -> None:
     ls, sd = bench.least_squares(target)
     mean = trace[burn:, :2].double().mean(0).cpu()
@@ -564,7 +666,7 @@ def main() -> int:
     from pmpx_torch import _build, bench
     from pmpx_torch.config import SamplerSpec
     from pmpx_torch.data import load_mnist
-    from pmpx_torch.experiments import ess_msjd, time_analysis
+    from pmpx_torch.experiments import ess_msjd, multichain, time_analysis
     from pmpx_torch.experiments import mnist as mnist_mod
     from pmpx_torch.kernels import fused_chain as fc
     from pmpx_torch.kernels import lstm_fused as lf
@@ -787,35 +889,17 @@ def main() -> int:
         # phase 9's farm cell at its own shape, on injected uniforms
         fcfg = pmp.PMPConfig(N=1, depth=9, step_size=0.02,
                              selection="all_first")
-        kw = fc.chain_consts(et, fcfg)
-        farm = farm_mod.make_chain_farm_fused(et, fcfg, FARM_STEPS,
-                                              chunk=FARM_STEPS, rng="input")
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(39)
         th_cell = bench.theta0(dev).expand(ESS_CHAINS, 3).contiguous()
-        uin_f = 1.0 - torch.rand(
-            (1, ESS_CHAINS, FARM_STEPS * fc.U_ROWS, fc.lane_extent(kw["P"])),
-            generator=gen, device=dev)
-        before = launches[fc.FARM_KERNEL]
-        roots = farm(farm_mod.chain_generators(39, ESS_CHAINS, dev), th_cell,
-                     uin=uin_f)
-        require(launches[fc.FARM_KERNEL] == before + 1,
-                "the farm cell in one launch")
-        farm_err = 0.0
-        for c in range(ESS_CHAINS):
-            agree, err, misses = fc.replay_roots_against_plain(
-                et.x2d, et.y2d, th_cell[c], uin_f[0, c], roots[c], **kw)
-            for t, k, kk, u, lo, hi in misses:
-                print(f"farm chain {c} step {t}: plain picks {k}, kernel "
-                      f"{kk}; u = {u:.9g}, plain cdf[k-1], cdf[k] = "
-                      f"{lo:.9g}, {hi:.9g}")
-            print(f"farm of {ESS_CHAINS}, chain {c} (P={kw['P']}): "
-                  f"{agree}/{FARM_STEPS} selections agree with the plain "
-                  f"version; max|err| of the state where they do: {err:.3g}")
-            require(agree >= CHAIN_AGREE * FARM_STEPS,
-                    f"farm chain {c} selections")
-            require(err <= CHAIN_ATOL, f"farm chain {c} trace atol")
-            farm_err = max(farm_err, err)
+        farm_err = farm_vs_plain(fc, farm_mod, "farm", et, fcfg, th_cell, 39)
+        # phase 11's multichain sweep cells, from its overdispersed starts
+        mt = multichain.chain_target(MC_N, device=dev)
+        th_mc = multichain.overdispersed(0, FARM_C, dev)
+        for N, d in MC_FARM_SHAPES:
+            mcfg = pmp.PMPConfig(N=N, depth=d, step_size=MC_STEP,
+                                 selection="all_first")
+            farm_err = max(farm_err, farm_vs_plain(
+                fc, farm_mod, f"multichain farm N={N} depth={d}", mt, mcfg,
+                th_mc, 50 + N + d))
 
     # the MNIST protocol's data (phases 3f, 6 and 10): the synthetic
     # stand-in at the paper's 60,000 / 10,000 images, as mnist.run draws it
@@ -1450,6 +1534,153 @@ def main() -> int:
             if k["name"] == "lstm_fused":
                 k["launches"] = sum(r["launches"].get("lstm_fused", 0)
                                     for r in mnist_runs.values())
+
+    with Phase("11 linreg and analytic experiments"):
+        from pmpx_torch import runtime
+        from pmpx_torch.experiments import (
+            banana, convergence, correlation, error_boxplot, lb_grid,
+            skewness,
+        )
+
+        p11 = {}  # this phase's launches, by kernel
+        with tempfile.TemporaryDirectory() as tmp:
+            def drive(label, mod, **kw):
+                """One run() of an experiment, its launches counted from 0
+                and added to the phase's."""
+                reset_launches()
+                t0 = time.perf_counter()
+                out = mod.run(out_dir=f"{tmp}/{label}", device=dev, **kw)
+                wall = time.perf_counter() - t0
+                counts = {k: v for k, v in launches.items() if v}
+                for k, v in counts.items():
+                    p11[k] = p11.get(k, 0) + v
+                shown = {k: v for k, v in out.items() if k != "rows"}
+                print(json.dumps({"experiment": label, **shown,
+                                  "wall_s": wall, "launches": counts,
+                                  "device": name, "power": smi}))
+                return out, counts
+
+            # convergence: the conv_*.cu protocol at n = 100,000, nothing
+            # cut; a warm-up and a timed run per algorithm
+            out, counts = drive("convergence", convergence, scale="paper",
+                                method="sweep")
+            require(counts == {"linreg_rss": 2 * 3 * 3000},
+                    f"convergence: one linreg_rss launch a superstep: "
+                    f"{counts}")
+            # convergence draws the ESS protocol's data and temper (et),
+            # lb_grid multichain's (mt): n = 100,000 from seed 0
+            for algo in ("MH", "MP", "PMP"):
+                print(f"convergence {algo}: "
+                      f"{out[f'{algo}_us_per_iter']:.3f} us per iteration "
+                      f"({smi})")
+                tail_check(f"convergence {algo}",
+                           (out[f"{algo}_beta0"], out[f"{algo}_beta1"]), et,
+                           bench)
+            conv_saved = load_trace(f"{tmp}/convergence/convergence.npz")
+
+            out, counts = drive("lb_grid", lb_grid, n_data=100_000,
+                                num_steps=LB_STEPS, method="sweep")
+            require(counts == {"linreg_rss": 4 * 3 * LB_STEPS},
+                    f"lb_grid: one linreg_rss launch a superstep: {counts}")
+            for key, v in out.items():
+                tail_check(f"lb_grid {key}", (v,), mt, bench)
+
+            out, _ = drive("correlation", correlation, scale="paper")
+            # the deepest cells again at seeds 1.. (no kernel runs here)
+            deep = [out] + [
+                correlation.run(out_dir=f"{tmp}/correlation_s{s}",
+                                device=dev, scale="paper", Ns=(31,),
+                                nums=(250,), seed=s)
+                for s in range(1, CORR_SEEDS)]
+            for dim, ref in CORR_PMPX.items():
+                got = np.array([o[f"d{dim}_D5_mean"] for o in deep])
+                mean, sd = got.mean(), got.std(ddof=1)
+                limit = CORR_Z * sd * math.sqrt(1 + 1 / CORR_SEEDS)
+                print(json.dumps({
+                    "correlation": f"d={dim} depth 5, chain_len 250",
+                    "pooled_mean_by_seed": got.tolist(),
+                    "seeds_mean": mean, "seeds_sd": sd, "pmpx": ref,
+                    "bound": limit}))
+                require(bool(np.isfinite(got).all())
+                        and abs(ref - mean) <= limit,
+                        f"correlation d={dim}: pmpx's {ref} within "
+                        f"{limit:.4g} of the port's seeds' mean {mean:.6g}")
+
+            out, _ = drive("error_boxplot", error_boxplot,
+                           number_sample=ERR_SAMPLES)
+            require(all(math.isfinite(v) for v in out.values()),
+                    "error_boxplot: finite errors")
+            out, _ = drive("banana", banana, num_steps=BANANA_STEPS)
+            require(abs(out["PMP_x2_mean"] + 8) < 4.0,
+                    "banana: PMP's x2 mean within pmpx's bound")
+
+            # skewness: 64 chains of binary P = 8 in one batch, one
+            # linreg_rss launch of their 512 states a superstep
+            out, counts = drive("skewness", skewness, scale="paper",
+                                method="sweep", num_steps=SKEW_STEPS,
+                                checkpoints=SKEW_MARKS)
+            require(counts == {"linreg_rss": SKEW_STEPS},
+                    f"skewness: one linreg_rss launch a batched superstep "
+                    f"for all 64 chains: {counts}")
+            require(all(math.isfinite(v) for v in out.values()),
+                    "skewness: finite")
+
+            # multichain: the fused farm sweep at pmpx's 5000 steps, and
+            # one chain-batched run
+            out, counts = drive("multichain_sweep", multichain, mode="sweep",
+                                path="fused", n_data=MC_N,
+                                num_steps=MC_STEPS)
+            rows = out["rows"]
+            print(json.dumps({"multichain_sweep": [
+                {k: r[k] for k in ("algo", "P", "wall_s", "rhat_beta0",
+                                   "rhat_beta1", "rhat_sigma",
+                                   "agg_ess_per_s")} for r in rows],
+                "device": name, "power": smi}))
+            require(len(rows) == 14, "multichain: 14 cells")
+            require(counts == {fc.FARM_KERNEL: 14 * 2 * MC_STEPS // 500},
+                    f"multichain: one farm launch a 500-step chunk: {counts}")
+            for r in rows:
+                worst = max(r[f"rhat_{k}"] for k in ("beta0", "beta1",
+                                                     "sigma"))
+                require(worst <= MC_RHAT_MAX,
+                        f"multichain {r['algo']} P={r['P']}: split-R-hat "
+                        f"{worst} <= {MC_RHAT_MAX}")
+            out, counts = drive("multichain_run", multichain, scale="paper",
+                                method="sweep")
+            require(counts == {"linreg_rss": 5000},
+                    f"multichain run: one launch a batched superstep: "
+                    f"{counts}")
+            require(out["rhat_beta0"] < 1.2
+                    and abs(out["mean_beta0"] + 1.0) < 0.15,
+                    "multichain run: R-hat and mean of beta0")
+
+            # the native runtime: built here, a trace written and read back
+            require(runtime.native_available(), "the native runtime built")
+            rows_t = np.concatenate(
+                [conv_saved["PMP_params"], conv_saved["PMP_time"][:, None]],
+                axis=1).astype(np.float32)
+            w = runtime.TraceWriter(f"{tmp}/conv_pmp.pmpx", rows_t.shape[1])
+            for r in rows_t:
+                w.append(r)
+            require(w.close() == len(rows_t), "TraceWriter wrote every row")
+            back = runtime.read_trace(f"{tmp}/conv_pmp.pmpx")
+            require(np.array_equal(back, rows_t),
+                    "the trace read back bit-equal")
+            print(f"runtime: {runtime.library_path().name}, a "
+                  f"{rows_t.shape} trace read back bit-equal")
+        print(json.dumps({
+            "phase11_reduced": [
+                f"lb_grid num_steps {LB_STEPS} (the paper's 2500)",
+                f"error_boxplot number_sample {ERR_SAMPLES} (the paper's "
+                "1000)",
+                f"banana num_steps {BANANA_STEPS} (the paper's 50,000)",
+                f"skewness num_steps {SKEW_STEPS} with checkpoints "
+                f"{list(SKEW_MARKS)} (the paper's 100,000 and 5,000, "
+                "20,000, 50,000, 100,000)",
+            ], "n_data": 100_000, "launches": p11}))
+        for k in kernels:
+            if k["name"] in ("linreg_rss", fc.FARM_KERNEL):
+                k["launches"] += p11.get(k["name"], 0)
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

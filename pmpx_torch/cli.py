@@ -1,18 +1,23 @@
-"""pmpx_torch command-line interface (port of ``pmpx/cli.py``'s ``list``
-and ``run``):
+"""pmpx_torch command-line interface (port of ``pmpx/cli.py``'s ``list``,
+``run``, ``convert`` and ``plot``):
 
     python -m pmpx_torch.cli list
     python -m pmpx_torch.cli run time_analysis --method fused_chain \
         --include_conv_pmp true
-    python -m pmpx_torch.cli run time_analysis --method sweep --device cpu
-    python -m pmpx_torch.cli run cores_sweep --method fused_chain --algo mp
+    python -m pmpx_torch.cli run error_boxplot --times 5 --device cpu
+    python -m pmpx_torch.cli run multichain --mode sweep --path fused
     python -m pmpx_torch.cli run mnist --model LSTM --algo pmp --N 7 \
         --lstm_kernel true --scale paper --num_steps 1000
+    python -m pmpx_torch.cli convert trace.pmpx --out trace.npy
+    python -m pmpx_torch.cli plot results/mnist/run.npz --out run.pdf
 
 Arbitrary ``--key value`` pairs are forwarded to the experiment's ``run()``
 (ints/floats/bools/tuples parsed from the string).  ``--device`` names the
-device (CUDA unless given).  Results print as one JSON object.  The
-``convert``, ``plot`` and ``doctor`` subcommands are not ported yet.
+device (CUDA unless given).  Results print as one JSON object.
+``convert`` turns a ``TraceWriter`` file into ``.npy`` (through
+:mod:`pmpx_torch.runtime`); ``plot`` draws a saved trace's loss and
+accuracy on twin axes (it needs matplotlib).  The ``doctor`` subcommand is
+not ported yet (ROADMAP §1 item 19).
 """
 
 from __future__ import annotations
@@ -22,7 +27,11 @@ import importlib
 import json
 import sys
 
+import numpy as np
+
 from pmpx_torch.experiments import EXPERIMENTS
+from pmpx_torch.experiments._common import maybe_plot
+from pmpx_torch.runtime import read_trace
 
 
 def _parse_value(v: str):
@@ -38,6 +47,25 @@ def _parse_value(v: str):
     return v
 
 
+def _plot_loss_acc(plt, npz: str, out: str) -> bool:
+    """The loss (left axis) and train/test accuracy (right axis) of a
+    recorder .npz against the iteration, saved to ``out``."""
+    z = np.load(npz)
+    fig, ax1 = plt.subplots()
+    if "loss" in z:
+        ax1.plot(z["loss"], color="tab:red", label="loss")
+        ax1.set_ylabel("loss", color="tab:red")
+    ax2 = ax1.twinx()
+    for k, c in (("train_acc", "tab:blue"), ("test_acc", "tab:green")):
+        if k in z:
+            ax2.plot(z[k], color=c, label=k)
+    ax2.set_ylabel("accuracy")
+    ax1.set_xlabel("iteration")
+    fig.legend()
+    fig.savefig(out)
+    return True
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m pmpx_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -46,7 +74,34 @@ def main(argv=None):
     runp.add_argument("experiment", choices=EXPERIMENTS)
     runp.add_argument("--device", default=None,
                       help="torch device (default: cuda)")
+    convp = sub.add_parser(
+        "convert", help="convert a pmpx binary trace to .npy "
+        "(the reference's data_trans.py txt->npy step)"
+    )
+    convp.add_argument("trace", help="path to a TraceWriter file")
+    convp.add_argument("--out", default=None, help="output .npy path")
+    plotp = sub.add_parser(
+        "plot", help="twin-axis loss/accuracy plot from a saved trace "
+        "(the reference's look_data.py)"
+    )
+    plotp.add_argument("npz", help="recorder .npz with loss/acc arrays")
+    plotp.add_argument("--out", default=None, help="output .pdf path")
     args, extra = parser.parse_known_args(argv)
+
+    if args.cmd == "convert":
+        arr = read_trace(args.trace)
+        out = args.out or (args.trace.rsplit(".", 1)[0] + ".npy")
+        np.save(out, arr)
+        print(json.dumps({"out": out, "shape": list(arr.shape)}))
+        return 0
+
+    if args.cmd == "plot":
+        out = args.out or (args.npz.rsplit(".", 1)[0] + ".pdf")
+        if maybe_plot(lambda plt: _plot_loss_acc(plt, args.npz, out)) is None:
+            raise SystemExit("plot needs matplotlib, which is not "
+                             "installed")
+        print(json.dumps({"out": out}))
+        return 0
 
     if args.cmd == "list":
         for e in EXPERIMENTS:

@@ -7,7 +7,8 @@ import torch
 
 from pmpx_torch.samplers.base import run_chain
 
-__all__ = ["collect_samples", "maybe_plot", "as_tuple", "sync"]
+__all__ = ["collect_samples", "maybe_plot", "as_tuple", "device_name",
+           "seeded", "sync"]
 
 
 def as_tuple(v):
@@ -16,6 +17,22 @@ def as_tuple(v):
     if isinstance(v, (list, tuple)):
         return tuple(v)
     return (v,)
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), else the device:
+    what a saved result names as the device it ran on."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
+def seeded(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``: the
+    port's counterpart of ``jax.random.key(seed)`` (another stream)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
 
 
 def sync(device: torch.device) -> None:

@@ -23,17 +23,12 @@ import torch
 from pmpx_torch import tree
 from pmpx_torch._device import resolve_device
 from pmpx_torch.config import SamplerSpec
-from pmpx_torch.experiments._common import as_tuple, sync
+from pmpx_torch.experiments._common import as_tuple, seeded, sync
+from pmpx_torch.experiments.plots import render_ess_msjd
 from pmpx_torch.metrics import ess, ess_chunked, ess_per_dim, msjd
 from pmpx_torch.metrics.recorder import save_trace
 from pmpx_torch.samplers.base import run_chain
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
-
-def _generator(seed, device):
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    return g
-
 
 def ess_target(n_data: int, seed: int = 0, method: str = "fused",
                device=None) -> BayesLinReg:
@@ -41,7 +36,7 @@ def ess_target(n_data: int, seed: int = 0, method: str = "fused",
     from ``seed`` on ``device``, tempered by 1/2000 as the reference's
     ESS protocol tempers it."""
     dev = resolve_device(device)
-    x, y = make_synthetic_linreg(_generator(seed, dev), n_data)
+    x, y = make_synthetic_linreg(seeded(seed, dev), n_data)
     return BayesLinReg(x, y, temper=1.0 / 2000.0, method=method, device=dev)
 
 
@@ -83,9 +78,9 @@ def _emit_all_cell(
     # a warm-up outside the timed window, like the root cells' (its
     # results are discarded; the timed loop restarts from theta0 with a
     # generator seeded alike)
-    runner(_generator(seed, dev), theta0, 0, min(emit_chunk, num_steps))
+    runner(seeded(seed, dev), theta0, 0, min(emit_chunk, num_steps))
     sync(dev)
-    gen = _generator(seed, dev)
+    gen = seeded(seed, dev)
     theta = theta0
     sq_sum, last = 0.0, None
     t0 = time.perf_counter()
@@ -179,9 +174,9 @@ def _emit_all_cell_fused(
     lasts = np.empty((num_steps, 3), np.float32)
     # a warm-up outside the timed window (the kernel's build), results
     # discarded
-    runk(_generator(seed, dev), theta0, min(emit_chunk, num_steps))
+    runk(seeded(seed, dev), theta0, min(emit_chunk, num_steps))
     sync(dev)
-    gen = _generator(seed, dev)
+    gen = seeded(seed, dev)
     theta = theta0
     t0 = time.perf_counter()
     for s in range(0, num_steps, emit_chunk):
@@ -320,12 +315,12 @@ def run(
                     runk = fc.make_fused_chain(target, cfg, chunk=1000)
 
                     def f(s=seed, runk=runk):
-                        return runk(_generator(s, dev), theta0, num_steps)
+                        return runk(seeded(s, dev), theta0, num_steps)
             else:
                 superstep = spec.build(target)
 
                 def f(s=seed, superstep=superstep):
-                    return run_chain(superstep, _generator(s, dev), theta0,
+                    return run_chain(superstep, seeded(s, dev), theta0,
                                      num_steps, collect=lambda th, o: th)[1]
             f()  # warm-up
             sync(dev)
@@ -368,4 +363,5 @@ def run(
     merged.update(out)
     with open(sp, "w") as fh:
         json.dump(merged, fh, indent=2)
+    render_ess_msjd(sp, out_dir)
     return out

@@ -25,7 +25,7 @@ import torch
 from pmpx_torch import tree
 from pmpx_torch._device import resolve_device
 from pmpx_torch.config import SamplerSpec
-from pmpx_torch.experiments._common import as_tuple, sync
+from pmpx_torch.experiments._common import as_tuple, device_name, seeded, sync
 from pmpx_torch.kernels import fused_chain as fc
 from pmpx_torch.metrics.recorder import save_trace
 from pmpx_torch.samplers.base import run_chain
@@ -45,18 +45,12 @@ REFERENCE_A100 = {
 }
 
 
-def _generator(device, seed):
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    return g
-
-
 def grid_target(n_data: int, *, seed: int = 0, method: str = "sweep",
                 device=None) -> BayesLinReg:
     """The grid's target at ``n_data`` points: synthetic data drawn from
     ``seed``, temper 1/10 at n = 500 and 1/1000 otherwise."""
     dev = resolve_device(device)
-    x, y = make_synthetic_linreg(_generator(dev, seed), n_data)
+    x, y = make_synthetic_linreg(seeded(seed, dev), n_data)
     temper = 1.0 / 10.0 if n_data == 500 else 1.0 / 1000.0
     return BayesLinReg(x, y, temper=temper, method=method, device=dev)
 
@@ -80,11 +74,11 @@ def _time_cell(target, spec, theta0, iters, fused_chain):
         def f(g):
             return run_chain(superstep, g, theta0, iters,
                              collect=lambda th, o: o["root_index"])[1]
-    f(_generator(dev, 1))
+    f(seeded(1, dev))
     sync(dev)
     best = float("inf")
     for r in range(3):
-        g = _generator(dev, 2 + r)
+        g = seeded(2 + r, dev)
         t0 = time.perf_counter()
         f(g)
         sync(dev)
@@ -178,8 +172,7 @@ def run(
         {"rows": np.asarray([r[3] for r in rows])},
         {
             "rows": [f"{r[0]}_n{r[1]}_P{r[2]}" for r in rows],
-            "device": (torch.cuda.get_device_name(dev)
-                       if dev.type == "cuda" else str(dev)),
+            "device": device_name(dev),
         },
     )
     return out

@@ -1,17 +1,26 @@
-"""A farm of fused chains on one card (port of the fused part of
-``pmpx/parallel/chains.py``).
+"""Several chains on one card (port of ``pmpx/parallel/chains.py``'s
+single-device parts).
 
-``pmpx`` runs C chains through ``lax.map`` over its fused kernel, one
-after another on each device of a ``chains`` mesh axis.  Here one launch
-of the fused chain kernel runs all C chains, one thread block each
-(:func:`pmpx_torch.kernels.fused_chain.chain_chunk` with theta (C, 3)), so
-that the chains fill the card's SMs instead of one.  Chain c is
+``run_chains_vmapped``: ``pmpx`` vmaps a scanned chain over C keys.  Here
+a superstep takes a batch of states (C, d) and advances every chain in one
+pass (:mod:`pmpx_torch.samplers.pmp`, :mod:`pmpx_torch.samplers.mh`): one
+draw of the batch's noise, one ``batch_log_prob`` call over all C*P
+states (on the sweep, one ``linreg_rss`` launch), and each chain
+resampled from its own weights.  ``torch.func.vmap`` would give no
+per-chain generator and no batching rule for the ctypes-bound kernels.
+The batch shares one ``torch.Generator``: its chains have the law of
+``pmpx``'s, but chain c is not reproducible on its own.
+
+The fused farm: ``pmpx`` runs C chains through ``lax.map`` over its fused
+kernel, one after another on each device of a ``chains`` mesh axis.  Here
+one launch of the fused chain kernel runs all C chains, one thread block
+each (:func:`pmpx_torch.kernels.fused_chain.chain_chunk` with theta (C,
+3)), so that the chains fill the card's SMs instead of one.  Chain c is
 bit-identical to a single chain of
 :func:`~pmpx_torch.kernels.fused_chain.make_fused_chain` run from chain
 c's generator and theta0, as ``pmpx`` asserts for its farm.
 
-Not ported yet: the mesh and ``shard_map`` parts (ROADMAP §1 item 20) and
-``run_chains_vmapped`` (item 13.5).
+Not ported yet: the mesh and ``shard_map`` parts (ROADMAP §1 item 20).
 """
 
 from __future__ import annotations
@@ -23,8 +32,32 @@ import torch
 
 from pmpx_torch._device import resolve_device
 from pmpx_torch.kernels import fused_chain as fc
+from pmpx_torch.samplers.base import run_chain
 
-__all__ = ["chain_generators", "make_chain_farm_fused", "run_chains_fused"]
+__all__ = ["chain_generators", "make_chain_farm_fused", "run_chains_fused",
+           "run_chains_vmapped"]
+
+
+def _chain_major(recs):
+    """Records stacked (steps, C, ...) -> (C, steps, ...), through dicts
+    and tuples."""
+    if isinstance(recs, dict):
+        return {k: _chain_major(v) for k, v in recs.items()}
+    if isinstance(recs, tuple):
+        return tuple(_chain_major(v) for v in recs)
+    return recs.transpose(0, 1)
+
+
+def run_chains_vmapped(superstep: Callable, generator: torch.Generator,
+                       theta0: torch.Tensor, num_steps: int,
+                       collect: Optional[Callable] = None):
+    """C chains of a batched superstep (the tree samplers and MH take a
+    (C, d) state) from ``theta0`` (C, d), all drawing from
+    ``generator``.  Returns ``(final (C, d), records stacked as (C,
+    steps, ...))``, as ``pmpx``'s does."""
+    final, recs = run_chain(superstep, generator, theta0, num_steps,
+                            collect=collect)
+    return final, _chain_major(recs)
 
 
 def chain_generators(seed: int, chains: int, device=None

@@ -40,10 +40,13 @@ def make_superstep(target: Target, cfg: MHConfig):
     """Build ``superstep(generator, theta, *, eps=None, u=None) ->
     (theta', out)``.
 
-    ``eps`` (the proposal's increment, (d,)) and ``u`` (the acceptance
-    uniform, 0-d) replace the draws from ``generator``, so a test can
-    replay the noise of a ``pmpx`` superstep.  ``out`` holds ``samples``
-    (1, d), ``accepted``, ``log_accept`` and ``root_logp`` (the chosen
+    ``theta`` is one chain's state (d,) or a batch of chains' (C, d); the
+    current and proposed states of the whole batch go to the target in
+    one ``batch_log_prob`` call.  ``eps`` (the proposal's increment, the
+    state's shape) and ``u`` (the acceptance uniforms, the state's leading
+    axes) replace the draws from ``generator``, so a test can replay the
+    noise of a ``pmpx`` superstep.  ``out`` holds ``samples`` (..., 1,
+    d), ``accepted``, ``log_accept`` and ``root_logp`` (the chosen
     state's log-density).
     """
 
@@ -61,20 +64,23 @@ def make_superstep(target: Target, cfg: MHConfig):
                     dtype=theta.dtype,
                 ) - 1.0)
         prop = theta + eps
-        # one batched call for {current, proposal}
-        lp = batch_log_prob(target, torch.stack([theta, prop]), generator)
-        lp_cur, lp_prop = lp[0], lp[1]
+        # one batched call for {current, proposal} of every chain
+        pair = torch.stack([theta, prop], dim=-2)
+        lp = batch_log_prob(
+            target, pair.reshape(-1, theta.shape[-1]), generator
+        ).reshape(pair.shape[:-1])
+        lp_cur, lp_prop = lp[..., 0], lp[..., 1]
         if cfg.rule == "metropolis":
             log_acc = torch.clamp(lp_prop - lp_cur, max=0.0)
         else:  # barker: p'/(p+p')
             log_acc = lp_prop - torch.logaddexp(lp_cur, lp_prop)
         if u is None:
-            u = torch.rand((), generator=generator, device=theta.device,
-                           dtype=theta.dtype)
+            u = torch.rand(theta.shape[:-1], generator=generator,
+                           device=theta.device, dtype=theta.dtype)
         accept = torch.log(u) < log_acc
-        theta2 = torch.where(accept, prop, theta)
+        theta2 = torch.where(accept[..., None], prop, theta)
         return theta2, {
-            "samples": theta2[None, :],
+            "samples": theta2[..., None, :],
             "accepted": accept,
             "log_accept": log_acc,
             "root_logp": torch.where(accept, lp_prop, lp_cur),

@@ -9,6 +9,13 @@ One engine covers the general (N, depth) tree, the binary prefetching tree
 2. batched target evaluation of all P nodes at once;
 3. per-level generalized-MTM weights in log space (:func:`log_accept_tree`);
 4. on-device categorical resampling and next-root selection.
+
+A state of shape (C, d) is a batch of C chains: each superstep draws the
+(C, P, d) innovations and every chain's uniforms in one call each from one
+generator, evaluates all C*P states in one batched target call, and
+resamples each chain from its own weights (``pmpx`` vmaps a chain per key
+instead; the batch's chains have the same law, but chain c is not
+reproducible on its own).  A state of shape (d,) is one chain.
 """
 
 from __future__ import annotations
@@ -90,23 +97,24 @@ def tree_positions(
 ) -> torch.Tensor:
     """All P speculative positions from the current state and innovations.
 
-    ``Y[x] = theta + sum of eps over the root->x creation path``: node x
-    picks up ``eps[x mod (N+1)**(i+1)]`` at level i iff digit i of x is
-    nonzero.  Within the first ``m = (N+1)**(i+1)`` indices that is eps
-    with its first ``(N+1)**i`` rows zeroed, tiled over the node axis; the
-    levels are added in order, as ``pmpx`` adds them.  ``eps[0]`` is
-    ignored (the root carries no innovation).
+    ``theta`` (..., d), ``eps`` (..., P, d) -> (..., P, d), leading axes
+    a batch of chains.  ``Y[x] = theta + sum of eps over the root->x
+    creation path``: node x picks up ``eps[x mod (N+1)**(i+1)]`` at level
+    i iff digit i of x is nonzero.  Within the first ``m = (N+1)**(i+1)``
+    indices that is eps with its first ``(N+1)**i`` rows zeroed, tiled
+    over the node axis; the levels are added in order, as ``pmpx`` adds
+    them.  ``eps[..., 0, :]`` is ignored (the root carries no innovation).
     """
-    P, d = eps.shape
+    *batch, P, d = eps.shape
     base = topo.N + 1
-    Y = theta[None, :].to(eps.dtype).expand(P, d)
+    Y = theta[..., None, :].to(eps.dtype).expand(eps.shape)
     for i in range(topo.depth):
         temp = base**i
         m = temp * base
         blk = torch.cat(
-            [eps.new_zeros((temp, d)), eps[temp:m]], dim=0
+            [eps.new_zeros((*batch, temp, d)), eps[..., temp:m, :]], dim=-2
         )
-        Y = Y + blk.repeat(P // m, 1)
+        Y = Y + blk.repeat(*[1] * len(batch), P // m, 1)
     return Y
 
 
@@ -118,8 +126,9 @@ def log_accept_tree(
 ) -> torch.Tensor:
     """Per-node log acceptance weights via the per-level generalized-MTM walk.
 
-    For each level i with stride ``temp=(N+1)**i`` and sibling groups
-    ``m[h, j] = h + j*temp``:
+    ``Y`` (..., P, d), ``logpi`` (..., P) -> (..., P), leading axes a
+    batch of chains.  For each level i with stride ``temp=(N+1)**i`` and
+    sibling groups ``m[h, j] = h + j*temp``:
 
         w[h, j] = pi(Y[m_hj]) * prod_{k != j} K(Y[m_hj] -> Y[m_hk])
         contribution[x] = log( w[h_i(x), c_i(x)] / sum_j w[h_i(x), j] )
@@ -128,32 +137,39 @@ def log_accept_tree(
     tile.  For N=1 the symmetric K factor cancels in every Barker pair and
     is dropped, as in ``pmpx``.
     """
+    batch = logpi.shape[:-1]
     base = topo.N + 1
     P = topo.P
-    logA = Y.new_zeros(P)
+    logA = Y.new_zeros(logpi.shape)
     for i in range(topo.depth):
         temp = base**i
         m = temp * base
-        lp_blk = logpi[:m].reshape(base, temp).T  # (temp, base)
+        lp_blk = logpi[..., :m].reshape(*batch, base, temp).transpose(-1, -2)
         if topo.N == 1:
             lw = lp_blk
         else:
-            G = Y[:m].reshape(base, temp, Y.shape[-1]).permute(1, 0, 2)
-            logK = trans.pairwise(G)  # (temp, base, base)
+            # (..., temp, base, d): group h's members h + j*temp
+            G = Y[..., :m, :].reshape(*batch, base, temp, Y.shape[-1])
+            # (..., temp, base, base)
+            logK = trans.pairwise(G.transpose(-3, -2))
             offdiag = torch.sum(logK, dim=-1) - torch.diagonal(
                 logK, dim1=-2, dim2=-1
             )
             lw = lp_blk + offdiag
         contrib = lw - torch.logsumexp(lw, dim=-1, keepdim=True)
-        block = contrib.T.reshape(m)
-        logA = logA + block.repeat(P // m)
+        block = contrib.transpose(-1, -2).reshape(*batch, m)
+        logA = logA + block.repeat(*[1] * len(batch), P // m)
     return logA
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``a[idx]`` for a 0-d index tensor without a host sync (plain
-    indexing with a tensor scalar reads it back to the host)."""
-    return a.index_select(0, idx.reshape(1))[0]
+    """``a[..., idx, ...]`` along the node axis ``idx.dim()`` of ``a``,
+    one index per chain of the batch ``idx`` (..,): a gather, so no host
+    sync (plain indexing with a tensor scalar reads it back to the
+    host)."""
+    k = idx.dim()
+    index = idx.long().reshape(idx.shape + (1,) * (a.dim() - k))
+    return torch.take_along_dim(a, index, dim=k).squeeze(k)
 
 
 def select_and_emit(
@@ -166,25 +182,27 @@ def select_and_emit(
 ):
     """Resampling + next-root selection shared by all tree samplers.
 
-    ``u`` replaces the resampling uniforms ((1,) for ``single``, (P,)
-    otherwise) and ``pick`` the uniform root slot of ``all_uniform``.
-    Returns ``(theta', samples, root_index)``.
+    ``Y`` (..., P, d) and ``logits`` (..., P), leading axes a batch of
+    chains.  ``u`` replaces the resampling uniforms ((..., 1) for
+    ``single``, (..., P) otherwise) and ``pick`` (...) the uniform root
+    slot of ``all_uniform``.  Returns ``(theta', samples, root_index)``.
     """
-    P = Y.shape[0]
+    P = Y.shape[-2]
+    batch = logits.shape[:-1]
     if cfg.selection == "single":
         idx = categorical(logits, generator=generator, u=u)
         theta2 = _take(Y, idx)
-        return theta2, theta2[None, :], idx
+        return theta2, theta2[..., None, :], idx
     draws = categorical_many(logits, P, generator=generator, u=u)
-    samples = Y[draws]
+    samples = torch.take_along_dim(Y, draws.long()[..., None], dim=-2)
     if cfg.selection == "all_uniform":
         if pick is None:
             pick = torch.randint(
-                0, P, (), generator=generator, device=Y.device
+                0, P, batch, generator=generator, device=Y.device
             )
         root = _take(draws, pick)
     else:  # all_first
-        root = draws[0]
+        root = draws[..., 0]
     return _take(Y, root), samples, root
 
 
@@ -192,24 +210,30 @@ def make_superstep(target: Target, cfg: PMPConfig):
     """Build ``superstep(generator, theta, *, eps=None, u=None, pick=None)
     -> (theta', out)``.
 
-    ``eps`` ((P, d) innovations, already scaled by the step size), ``u``
-    and ``pick`` replace the draws from ``generator``, so a test can
-    replay the noise of a ``pmpx`` superstep.  ``out`` holds ``samples``,
-    ``log_accept``, ``root_index`` and ``root_logp`` (the chosen state's
-    log-density).
+    ``theta`` is one chain's state (d,) or a batch of chains' (C, d); the
+    batch's C*P positions go to the target in one ``batch_log_prob``
+    call.  ``eps`` ((..., P, d) innovations, already scaled by the step
+    size), ``u`` and ``pick`` replace the draws from ``generator``, with
+    the state's leading axes, so a test can replay the noise of a
+    ``pmpx`` superstep.  ``out`` holds ``samples``, ``log_accept``,
+    ``root_index`` and ``root_logp`` (the chosen state's log-density),
+    each with the state's leading axes.
     """
     topo = cfg.topology()
     trans = cfg.transition()
     P, d = topo.P, target.d
 
     def superstep(generator, theta, *, eps=None, u=None, pick=None):
+        batch = theta.shape[:-1]
         if eps is None:
             eps = cfg.step_size * torch.randn(
-                (P, d), generator=generator, device=theta.device,
+                (*batch, P, d), generator=generator, device=theta.device,
                 dtype=theta.dtype,
             )
         Y = tree_positions(theta, eps, topo)
-        logpi = batch_log_prob(target, Y, generator)
+        logpi = batch_log_prob(
+            target, Y.reshape(-1, d), generator
+        ).reshape(*batch, P)
         logA = log_accept_tree(Y, logpi, topo, trans)
         logits = stabilize_logits(logA, cfg.stabilizer, cfg.nan_guard)
         theta2, samples, root = select_and_emit(

@@ -587,3 +587,52 @@ def test_lstm_pmp_replay_against_plain(cuda):
     agree, err = lf.replay_against_plain(post, cfg, post.init_theta(), eps, u)
     assert agree >= 0.99 * steps
     assert err == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [
+    dict(algo="pmp", N=1, depth=3, selection="all_first"),
+    dict(algo="mp", N=7, selection="all_uniform"),
+    dict(algo="mh"),
+], ids=["pmp", "mp", "mh"])
+def test_batched_superstep_on_the_card_matches_cpu(cuda, spec):
+    """64 chains of the chain-batched superstep on the sweep at n =
+    100,000 (skewness' protocol), on the card and on the CPU from the same
+    injected noise: one linreg_rss launch a superstep for the whole batch,
+    the same selections, the states within 1e-5."""
+    from pmpx_torch.config import SamplerSpec
+    from pmpx_torch.parallel import run_chains_vmapped
+
+    C, T, n = 64, 20, 100_000
+    P = {"pmp": 8, "mp": 8, "mh": 2}[spec["algo"]]
+    g = torch.Generator()
+    g.manual_seed(13)
+    x, y = make_synthetic_linreg(g, n)
+    eps = 0.02 * torch.randn((T, C) + ((3,) if P == 2 else (P, 3)),
+                             generator=g)
+    u = torch.rand((T, C) + (() if P == 2 else (P,)), generator=g)
+    pick = torch.randint(0, P, (T, C), generator=g)
+    theta0 = torch.tensor([-1.0, 2.0, 0.5]).repeat(C, 1)
+    theta0 = theta0 + 0.05 * torch.randn((C, 3), generator=g)
+
+    def run(dev):
+        tgt = BayesLinReg(x, y, temper=1 / 2000, method="sweep", device=dev)
+        sup = SamplerSpec(step_size=0.02, **spec).build(tgt)
+        step = iter(range(T))
+
+        def replay(gen, th):
+            t = next(step)
+            kw = dict(eps=eps[t].to(dev), u=u[t].to(dev))
+            if P != 2:
+                kw["pick"] = pick[t].to(dev)
+            return sup(gen, th, **kw)
+
+        return run_chains_vmapped(replay, None, theta0.to(dev), T,
+                                  collect=lambda th, o: th)[1].cpu()
+
+    want = run("cpu")
+    before = launches["linreg_rss"]
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert launches["linreg_rss"] - before == T
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
