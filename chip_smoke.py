@@ -68,7 +68,20 @@ Phases, each printing its wall time:
    ``linreg_rss`` launch a superstep), ``multichain``'s fused farm sweep
    (split-R-hat of every cell) and a chain-batched run, and the native
    runtime (built, a trace read back bit-equal); the step-count cuts listed
-   in its JSON line.
+   in its JSON line;
+12. checkpoint/resume and the HMC samplers at full width (the step counts
+   cut, listed in its JSON line): 12a. SP-, MP- and PMP-HMC over the
+   linreg posterior at n = 100,000 on the sweep (``linreg_rss`` inside
+   ``value_and_grad_batch``), posterior means within 4 sd of the
+   least-squares fit; 12b. ``cifar_hmc`` at ``scale="paper"`` (LeNet,
+   50,000 / 10,000 images) for each algorithm, straight and interrupted
+   after its first chunk and resumed, the traces bit-equal under
+   ``torch.use_deterministic_algorithms``, with ms per superstep and peak
+   memory; 12c. ``bnn`` likewise (60,000 / 10,000 images, hidden 1024);
+   12d. the MNIST-LSTM PMP chain through ``lstm_fused`` in one loop, in
+   checkpointed chunks, and interrupted and resumed by ``adopt_prefix_run``,
+   bit-equal; 12e. ``resilience`` (SIGKILLed child processes on the card),
+   its assembled trace bitwise identical to an uninterrupted child's.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -79,6 +92,7 @@ or of the ``pmpx`` package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -131,10 +145,11 @@ NEW_MODES = ((3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2), (3, 4),
 # and P = 8 at other sizes; the ESS protocol's sweep cells, P = 512 and 8
 # at n = 100,000; phase 11's at n = 100,000: MH's 2 states (convergence,
 # lb_grid), lb_grid's 7 x 2 tree and multichain's 8 chains of 8 (64), and
-# skewness' 64 chains of 8 (512)
+# skewness' 64 chains of 8 (512); phase 12's: the HMC density calls' 1, 2
+# and 4 states (padded to 8) and resilience's depth-5 tree (32)
 RSS_SHAPES = ((1024, 100_000), (1024, 500), (4, 100_000), (4, 500),
               (200, 100_000), (8, 5000), (512, 100_000), (8, 100_000),
-              (2, 100_000), (64, 100_000))
+              (2, 100_000), (64, 100_000), (1, 100_000), (32, 100_000))
 # and the edges of its launch geometry: cluster sizes 1 to 8, P above one
 # wave's width, n with and without a tail of < 4 points
 RSS_EDGE_P = (8, 16, 64, 128, 576, 1024, 1088, 2048)
@@ -235,6 +250,32 @@ CORR_Z, CORR_SEEDS = 4.0, 8
 CORR_PMPX = {10: 0.0197143517434597, 20: 0.13868094980716705,
              40: 0.2536238133907318, 80: 0.407172292470932,
              160: 0.8322762846946716}
+# phase 12a: the HMC family over the ESS protocol's linreg posterior (n =
+# 100,000, temper 1/2000) on the sweep, from (0, 0, 1): (label, SamplerSpec
+# fields, supersteps); a third of each chain is burn-in.  Step 0.03 with
+# unit momenta: the posterior's stiffest direction (sigma, sd 0.05) is
+# stable below a step of ~0.1
+HMC_LINREG = (
+    ("sp_hmc", dict(algo="sp_hmc", step_size=0.03, num_leapfrog=3), 1500),
+    ("mp_hmc", dict(algo="mp_hmc", N=7, step_size=0.03), 400),
+    ("pmp_hmc_barker", dict(algo="pmp_hmc", N=1, depth=3, step_size=0.03,
+                            rule="barker"), 800),
+    ("pmp_hmc_mh_clamp", dict(algo="pmp_hmc", N=1, depth=3, step_size=0.03,
+                              rule="mh_clamp"), 800),
+    ("pmp_hmc_barker_clamp", dict(algo="pmp_hmc", N=1, depth=3,
+                                  step_size=0.03, rule="barker_clamp"), 800),
+)
+# phase 12b-d: the paper's widths, num_steps cut (the paper's 50,000 for
+# CIFAR, 30,000 for the BNN, 1,000,000 for the MNIST LSTM), in chunks
+CIFAR_STEPS, CIFAR_CHUNK = 20, 10
+BNN_STEPS, BNN_CHUNK = 30, 10
+LSTM_CKPT_STEPS, LSTM_CKPT_CHUNK = 20, 10
+# phase 12e: resilience at n = 100,000, a depth-5 binary tree (P = 32)
+RES_STEPS, RES_EVERY, RES_KILLS, RES_DEPTH = 6000, 1000, 2, 5
+# phase 12b-c's fallback gate where torch names an op on the path without a
+# deterministic CUDA version: the traces within this, relative
+RESUME_RTOL = 1e-5
+
 # phase 6's P sweeps on the benchmark cell's data: one SWEEP_STEPS-superstep
 # launch per (N, depth), each timed over SWEEP_REPS, emit="all" up to its
 # 512-lane cap.  binary: depths 1-10 (all 1-9); flat MP: P = 4 ... 1024
@@ -650,6 +691,261 @@ def posterior_check(name, trace, burn, target, bench) -> None:
           f"|z| = {z.tolist()}")
     require(bool(torch.isfinite(trace).all()), f"{name}: finite trace")
     require(bool((z < 4.0).all()), f"{name}: mean within 4 sd of the fit")
+
+
+def hmc_density_calls(spec: dict) -> int:
+    """value_and_grad_batch calls (one linreg_rss launch each on the
+    sweep) in one superstep of an HMC spec: SP 1 + 2 a leapfrog step, MP 1
+    + 2 N, PMP 1 + depth (each level's edges in one call)."""
+    if spec["algo"] == "sp_hmc":
+        return 1 + 2 * spec["num_leapfrog"]
+    if spec["algo"] == "mp_hmc":
+        return 1 + 2 * spec["N"]
+    return 1 + spec["depth"]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for one check, with
+    ``warn_only``: an op on the path without a deterministic CUDA version
+    warns instead of raising; yields the set of such ops torch named."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    flagged = set()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield flagged
+        finally:
+            torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+            for w in caught:
+                msg = str(w.message)
+                if "does not have a deterministic implementation" in msg:
+                    flagged.add(msg.split(" does not have")[0].strip())
+                elif "CuBLAS" in msg or "CUBLAS" in msg:
+                    flagged.add("cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)")
+
+
+def resumed_gate(label, want: dict, got: dict, flagged: set) -> dict:
+    """The resumed run's trace against the straight run's: bit-equal, or,
+    where torch named an op on the path without a deterministic CUDA
+    version, within RESUME_RTOL relative."""
+    require(set(want) == set(got), f"{label}: the same trace keys")
+    for k in want:
+        require(want[k].shape == got[k].shape, f"{label}: {k} shape")
+        require(bool(np.isfinite(want[k]).all()), f"{label}: {k} finite")
+    equal = all(np.array_equal(want[k], got[k]) for k in want)
+    gap = max(float(np.abs(want[k].astype(np.float64) - got[k]).max()
+                    / max(float(np.abs(want[k]).max()), 1e-30))
+              for k in want)
+    if not equal:
+        require(bool(flagged) and gap <= RESUME_RTOL,
+                f"{label}: resumed trace bit-equal to the straight one "
+                f"(relative gap {gap:.3g}; ops without a deterministic "
+                f"version: {sorted(flagged)})")
+    return {"bit_equal": equal, "max_rel_gap": gap,
+            "nondeterministic_ops": sorted(flagged)}
+
+
+def lstm_torch_state(post, theta) -> dict:
+    """A torch ``nn.LSTM`` + ``nn.Linear`` state dict holding an MNIST-LSTM
+    theta (the inverse of ``theta_from_torch_state``: the hidden-side bias
+    as ``bias_ih_l0``, ``bias_hh_l0`` zero), for ``mnist.run``'s
+    ``warm_start``."""
+    p = {k: v.detach().cpu() for k, v in post.unravel(theta).items()}
+    cell = "OptimizedLSTMCell_0"
+    cat = lambda side, leaf, tr: torch.cat(  # noqa: E731
+        [p[f"{cell}.{side}{g}.{leaf}"].T if tr else
+         p[f"{cell}.{side}{g}.{leaf}"] for g in "ifgo"])
+    b = cat("h", "bias", False)
+    return {"lstm.weight_ih_l0": cat("i", "kernel", True),
+            "lstm.weight_hh_l0": cat("h", "kernel", True),
+            "lstm.bias_ih_l0": b, "lstm.bias_hh_l0": torch.zeros_like(b),
+            "fc.weight": p["Dense_0.kernel"].T.contiguous(),
+            "fc.bias": p["Dense_0.bias"]}
+
+
+def phase12(dev, name: str, smi: str, bench) -> dict:
+    """Phase 12's runs and gates; returns its launches by kernel."""
+    from pmpx_torch.config import SamplerSpec
+    from pmpx_torch.experiments import bnn, cifar_hmc, resilience
+    from pmpx_torch.experiments import mnist as mnist_mod
+    from pmpx_torch.experiments.ess_msjd import ess_target
+    from pmpx_torch.interop import load_torch_pickle, theta_from_torch_state
+    from pmpx_torch.kernels import launches, reset_launches
+    from pmpx_torch.metrics.recorder import load_trace, reference_style_name
+    from pmpx_torch.models import MnistLSTM
+    from pmpx_torch.samplers.base import run_chain
+    from pmpx_torch.targets.linreg import BayesLinReg
+    from pmpx_torch.targets.nn import NNPosterior
+    from pmpx_torch.data import load_mnist
+
+    p12 = {}
+
+    def counted(label, fn):
+        """fn() with the launches counted from 0 and added to the
+        phase's; returns (fn's result, its counts, wall s)."""
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in launches.items() if v}
+        for k, v in counts.items():
+            p12[k] = p12.get(k, 0) + v
+        return out, counts, wall
+
+    # 12a: the HMC family over the linreg posterior on the sweep
+    et = ess_target(ESS_N, device=dev)
+    tgt = BayesLinReg(et.x, et.y, temper=et.temper, method="sweep",
+                      device=dev)
+    for label, spec, steps in HMC_LINREG:
+        sup = SamplerSpec(**spec).build(tgt)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(12)
+        theta0 = torch.tensor([0.0, 0.0, 1.0], device=dev)
+        with torch.no_grad():
+            (_, tr), counts, wall = counted(label, lambda: run_chain(
+                sup, gen, theta0, steps, collect=lambda th, o: th))
+        calls = hmc_density_calls(spec)
+        require(counts == {"linreg_rss": calls * steps},
+                f"12a {label}: one linreg_rss launch a density call: "
+                f"{counts}")
+        burn = steps // 3
+        tail = tr[burn:].double().mean(0).cpu()
+        z = tail_check(f"12a {label}", tuple(tail[:2].tolist()), tgt,
+                       bench)
+        require(bool(torch.isfinite(tr).all()), f"12a {label}: finite")
+        print(json.dumps({"hmc_linreg": label, **spec, "supersteps": steps,
+                          "burn_in": burn, "tail_mean": tail.tolist(),
+                          **z, "linreg_rss_per_superstep": calls,
+                          "ms_per_superstep": wall * 1e3 / steps,
+                          "launches": counts, "device": name,
+                          "power": smi}))
+
+    # the recorder of ops without a deterministic CUDA version, on a
+    # positive control: torch names histc
+    with deterministic() as probe:
+        torch.histc(torch.rand(64, device=dev))
+    require(any("histc" in op for op in probe),
+            f"deterministic() records the histc control: {probe}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 12b-c: cifar_hmc and bnn at the paper's widths, straight and
+        # interrupted after the first chunk and resumed
+        def straight_and_resumed(label, mod, stem, steps, chunk, **kw):
+            one, cut = f"{tmp}/{label}/one", f"{tmp}/{label}/cut"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with deterministic() as flagged:
+                out, counts, wall = counted(label, lambda: mod.run(
+                    num_steps=steps, chunk_steps=chunk, out_dir=one,
+                    device=dev, **kw))
+                peak = torch.cuda.max_memory_allocated()
+                counted(label, lambda: mod.run(
+                    num_steps=chunk, chunk_steps=chunk, out_dir=cut,
+                    device=dev, **kw))
+                counted(label, lambda: mod.run(
+                    num_steps=steps, chunk_steps=chunk, out_dir=cut,
+                    resume=True, device=dev, **kw))
+            gate = resumed_gate(label, load_trace(f"{one}/{stem}.npz"),
+                                load_trace(f"{cut}/{stem}.npz"), flagged)
+            for k in ("loss_first", "loss_last"):
+                require(math.isfinite(out[k]), f"{label}: {k} finite")
+            rec = {"run": label, **kw, "num_steps": steps,
+                   "chunk_steps": chunk, **out, **gate,
+                   "ms_per_superstep": out["steady_ms_per_superstep"],
+                   "peak_gib": peak / 2**30, "straight_wall_s": wall,
+                   "deterministic_algorithms": True, "device": name,
+                   "power": smi}
+            print(json.dumps(rec))
+            return rec
+
+        for algo in ("sp_hmc", "mp_hmc", "pmp_hmc"):
+            straight_and_resumed(
+                f"cifar_{algo}", cifar_hmc, f"cifar_{algo}", CIFAR_STEPS,
+                CIFAR_CHUNK, algo=algo, N=7, step_size=0.1,
+                mom_scale=0.0005, scale="paper")
+        for algo, stem in (("pmp_hmc", "bnn_pmphmc_N3"),
+                           ("sp_hmc", "bnn_sphmc")):
+            rec = straight_and_resumed(
+                f"bnn_{algo}", bnn, stem, BNN_STEPS, BNN_CHUNK, algo=algo,
+                n=2, hidden=1024, scale="paper")
+            require(0.0 <= rec["acc_last"] <= 1.0, f"bnn {algo}: accuracy")
+
+        # 12d: the MNIST-LSTM PMP chain through lstm_fused, from one
+        # pretrain's theta: one loop, checkpointed chunks, and an
+        # interrupted run extended by resume (adopt_prefix_run)
+        x_tr, y_tr, _, _ = load_mnist(60_000, 10_000, device=dev)
+        post = NNPosterior(MnistLSTM(), x_tr, y_tr, temper=10.0, device=dev)
+        theta_ws = mnist_mod.pretrain(post, 50)
+        ws = f"{tmp}/lstm_ws.pkl"
+        torch.save(lstm_torch_state(post, theta_ws), ws)
+        require(torch.equal(theta_from_torch_state(
+            post, load_torch_pickle(ws)), theta_ws),
+            "12d: the warm start's torch state maps back bit-equal")
+        del post, x_tr, y_tr
+        kw = dict(model="LSTM", algo="pmp", N=7, scale="paper",
+                  lstm_kernel=True, warm_start=ws, device=dev)
+        losses, lstm_runs = {}, {}
+        for label, steps, chunk, extra in (
+                ("one_loop", LSTM_CKPT_STEPS, 0, {}),
+                ("chunked", LSTM_CKPT_STEPS, LSTM_CKPT_CHUNK, {}),
+                ("interrupted", LSTM_CKPT_CHUNK, LSTM_CKPT_CHUNK, {}),
+                ("resumed", LSTM_CKPT_STEPS, LSTM_CKPT_CHUNK,
+                 {"resume": True})):
+            # the interrupted run and its resume share a directory
+            d = f"{tmp}/lstm/" + {"interrupted": "cut", "resumed": "cut"}.get(
+                label, label)
+            out, counts, wall = counted(f"12d {label}", lambda: mnist_mod.run(
+                num_steps=steps, chunk_steps=chunk, out_dir=d, **kw, **extra))
+            ran = steps - (LSTM_CKPT_CHUNK if label == "resumed" else 0)
+            require(counts == {"lstm_fused": ran},
+                    f"12d {label}: one lstm_fused launch a superstep: "
+                    f"{counts}")
+            stem = reference_style_name("PMP", 1e-4, steps, model="LSTM",
+                                        N=7)
+            losses[label] = load_trace(f"{d}/{stem}.npz")["loss"]
+            lstm_runs[label] = {"wall_s": wall, "launches": counts, **out}
+        for label in ("chunked", "resumed"):
+            require(np.array_equal(losses[label], losses["one_loop"]),
+                    f"12d {label}: the losses bit-equal to the one loop")
+        require(bool(np.isfinite(losses["one_loop"]).all()), "12d finite")
+        print(json.dumps({"mnist_lstm_checkpointed": lstm_runs,
+                          "bit_equal": True, "device": name, "power": smi}))
+
+        # 12e: resilience on the card, SIGKILLed child processes
+        res, _, wall = counted("12e", lambda: resilience.run(
+            num_steps=RES_STEPS, checkpoint_every=RES_EVERY,
+            kills=RES_KILLS, n_data=ESS_N, depth=RES_DEPTH,
+            kill_mode="sigkill", out_dir=f"{tmp}/resilience", device=dev))
+        require(res["bitwise_identical"] and res["rows"] == RES_STEPS,
+                "12e: the crash-looped trace bitwise identical")
+        require(res["kills"] == RES_KILLS, f"12e: {RES_KILLS} kills")
+        child = res["uninterrupted_launches"]
+        require(child == {"linreg_rss": RES_STEPS},
+                f"12e: the child's superstep launched linreg_rss: {child}")
+        for k, v in child.items():
+            p12[k] = p12.get(k, 0) + v
+        print(json.dumps({"resilience": res, "wall_s": wall,
+                          "device": name, "power": smi}))
+
+    print(json.dumps({
+        "phase12_reduced": [
+            f"cifar_hmc num_steps {CIFAR_STEPS} in chunks of {CIFAR_CHUNK} "
+            "(the paper's 50,000)",
+            f"bnn num_steps {BNN_STEPS} in chunks of {BNN_CHUNK} (the "
+            "paper's 30,000 in chunks of 1000)",
+            f"mnist LSTM num_steps {LSTM_CKPT_STEPS} in chunks of "
+            f"{LSTM_CKPT_CHUNK} (the paper's 1,000,000)",
+            f"resilience num_steps {RES_STEPS}, checkpoint_every "
+            f"{RES_EVERY}, {RES_KILLS} kills (scale='paper': 1,000,000, "
+            "100,000, 3)",
+            "12a step counts "
+            + ", ".join(f"{lb} {n}" for lb, _, n in HMC_LINREG),
+        ], "launches": p12}))
+    return p12
 
 
 def main() -> int:
@@ -1505,9 +1801,11 @@ def main() -> int:
                 label = f"{model}_{algo}"
                 kernel = model == "LSTM"
                 reset_launches()
+                # one loop, timed by CUDA events (chunk_steps=0; phase 12d
+                # runs the checkpointed chunks)
                 out = mnist_mod.run(model=model, algo=algo, N=7,
                                     scale="paper", num_steps=steps,
-                                    lstm_kernel=kernel,
+                                    lstm_kernel=kernel, chunk_steps=0,
                                     out_dir=f"{tmp}/{label}", device=dev)
                 counts = {k: v for k, v in launches.items() if v}
                 stem = reference_style_name(algo.upper(), 1e-4, steps,
@@ -1681,6 +1979,12 @@ def main() -> int:
         for k in kernels:
             if k["name"] in ("linreg_rss", fc.FARM_KERNEL):
                 k["launches"] += p11.get(k["name"], 0)
+
+    with Phase("12 checkpoint/resume and the HMC samplers"):
+        p12 = phase12(dev, name, smi, bench)
+        for k in kernels:
+            if k["name"] in p12:
+                k["launches"] += p12[k["name"]]
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

@@ -8,6 +8,10 @@
     python -m pmpx_torch.cli run multichain --mode sweep --path fused
     python -m pmpx_torch.cli run mnist --model LSTM --algo pmp --N 7 \
         --lstm_kernel true --scale paper --num_steps 1000
+    python -m pmpx_torch.cli run cifar_hmc --algo pmp_hmc --scale paper \
+        --num_steps 500 --chunk_steps 100 --resume true
+    python -m pmpx_torch.cli run bnn --algo pmp_hmc --n 2 --scale paper
+    python -m pmpx_torch.cli run resilience --kills 2 --kill_mode sigkill
     python -m pmpx_torch.cli convert trace.pmpx --out trace.npy
     python -m pmpx_torch.cli plot results/mnist/run.npz --out run.pdf
 

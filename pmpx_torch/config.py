@@ -1,20 +1,19 @@
-"""Declarative sampler configuration (port of ``SamplerSpec`` from
-``pmpx/config.py``).
+"""Declarative experiment configuration (port of ``pmpx/config.py``).
 
-One dataclass names the algorithm and its knobs and builds the superstep
-over a target.  ``RunSpec`` and the YAML/JSON loader are not ported yet
-(ROADMAP §1 item 18), nor are the HMC samplers (item 15): ``build`` raises
-``NotImplementedError`` for them.
+``SamplerSpec`` names the algorithm and its knobs and builds the superstep
+over a target, for every sampler of the port (MH, MP, PSP, PMP and the
+SP-, MP- and PMP-HMC family).  ``RunSpec`` adds the run's step count, seed
+and output directory, and :func:`load_spec` reads one from a JSON file
+(YAML where PyYAML imports) with dot-key overrides.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import json
+from typing import Any, Dict, Optional
 
-__all__ = ["SamplerSpec"]
-
-_HMC_ALGOS = ("sp_hmc", "mp_hmc", "pmp_hmc")
+__all__ = ["SamplerSpec", "RunSpec", "load_spec"]
 
 
 @dataclasses.dataclass
@@ -37,8 +36,9 @@ class SamplerSpec:
     stabilizer: str = "none"
     rule: Optional[str] = None  # HMC acceptance rule / MH rule
     proposal: str = "normal"  # MH only: "uniform" for the reference SP
-    # pmpx's HMC knobs (mom_scale, num_leapfrog, accept_scale) come with
-    # the HMC samplers (ROADMAP §1 item 15)
+    mom_scale: float = 1.0  # the HMC family's momentum scale
+    num_leapfrog: int = 1  # SP-HMC
+    accept_scale: float = 1.0  # SP-HMC
 
     @classmethod
     def reference_nn(cls, algo: str, N: int, **kw) -> "SamplerSpec":
@@ -53,7 +53,7 @@ class SamplerSpec:
 
     def build(self, target):
         """Return the superstep for this spec over ``target``."""
-        from pmpx_torch.samplers import mh, mp, pmp, psp
+        from pmpx_torch.samplers import hmc, mh, mp, pmp, psp
 
         selection = self.selection
         if selection is None:
@@ -104,9 +104,74 @@ class SamplerSpec:
                     stabilizer=self.stabilizer,
                 ),
             )
-        if self.algo in _HMC_ALGOS:
-            raise NotImplementedError(
-                f"algo {self.algo!r}: the HMC samplers are not ported yet "
-                "(ROADMAP §1 item 15)"
+        if self.algo == "sp_hmc":
+            return hmc.make_superstep(
+                target,
+                hmc.HMCConfig(
+                    step_size=self.step_size, mom_scale=self.mom_scale,
+                    accept_scale=self.accept_scale,
+                    num_leapfrog=self.num_leapfrog,
+                ),
+            )
+        if self.algo == "mp_hmc":
+            return hmc.make_superstep(
+                target,
+                hmc.MPHMCConfig(
+                    N=self.N, step_size=self.step_size,
+                    mom_scale=self.mom_scale,
+                ),
+            )
+        if self.algo == "pmp_hmc":
+            return hmc.make_superstep(
+                target,
+                hmc.PMPHMCConfig(
+                    depth=self.depth, N=self.N, step_size=self.step_size,
+                    mom_scale=self.mom_scale,
+                    rule=self.rule if self.rule is not None else "barker",
+                    stabilizer=self.stabilizer, selection=selection,
+                ),
             )
         raise ValueError(f"unknown algo {self.algo!r}")
+
+
+@dataclasses.dataclass
+class RunSpec:
+    sampler: SamplerSpec = dataclasses.field(default_factory=SamplerSpec)
+    num_steps: int = 1000
+    seed: int = 0
+    out_dir: str = "results"
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def load_spec(path: Optional[str] = None,
+              overrides: Optional[dict] = None) -> RunSpec:
+    """A :class:`RunSpec` from a JSON file, or a YAML file where PyYAML
+    imports, with dot-key overrides (``{"sampler.N": 7, "num_steps":
+    500}``).  Keys that are not ``RunSpec`` fields go to ``extra``."""
+    raw: Dict[str, Any] = {}
+    if path:
+        with open(path) as f:
+            text = f.read()
+        try:
+            raw = json.loads(text)
+        except json.JSONDecodeError:
+            try:
+                import yaml
+            except ImportError as e:
+                raise ImportError(
+                    f"{path} is not JSON, and reading it as YAML needs "
+                    "PyYAML, which is not installed: write the spec as "
+                    "JSON"
+                ) from e
+            raw = yaml.safe_load(text)
+    for k, v in (overrides or {}).items():
+        node = raw
+        parts = k.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    samp = SamplerSpec(**raw.pop("sampler", {}))
+    known = {f.name for f in dataclasses.fields(RunSpec)} - {"sampler",
+                                                              "extra"}
+    kw = {k: raw.pop(k) for k in list(raw) if k in known}
+    return RunSpec(sampler=samp, extra=raw, **kw)

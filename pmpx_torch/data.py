@@ -1,26 +1,30 @@
-"""MNIST loading with a deterministic synthetic fallback (port of the MNIST
-part of ``pmpx/data.py``).
+"""MNIST and CIFAR-10 loading with a deterministic synthetic fallback (port
+of ``pmpx/data.py``).
 
 Loaders look for data on disk under ``$PMPX_DATA_DIR`` (default
 ``./data``), in the formats ``pmpx`` reads:
 
-* ``mnist.npz`` with ``x_train/y_train/x_test/y_test`` arrays;
+* ``mnist.npz`` / ``cifar10.npz`` with ``x_train/y_train/x_test/y_test``
+  arrays;
 * the MNIST IDX files torchvision leaves in ``MNIST/raw/``
   (``train-images-idx3-ubyte`` etc., plain or ``.gz``), also accepted
-  directly in the data dir.
+  directly in the data dir;
+* the CIFAR-10 python pickle batches torchvision leaves in
+  ``cifar-10-batches-py/`` (``data_batch_1..5``, ``test_batch``).
 
 A file that is present but malformed fails loudly: it never falls back to
-the synthetic stand-in.  Without data on disk, :func:`load_mnist` draws a
-learnable stand-in with MNIST's shapes and normalisation: class-prototype
-images plus unit noise.  The law is ``pmpx``'s; the numbers come from
-``numpy.random.default_rng(seed)`` and are not ``pmpx``'s JAX stream.
-``load_cifar10`` waits for LeNet (ROADMAP §1 item 18).
+the synthetic stand-in.  Without data on disk, the loaders draw a
+learnable stand-in with the dataset's shapes: class-prototype images plus
+unit noise.  The law is ``pmpx``'s (``_synthetic_images``); the numbers
+come from ``numpy.random.default_rng(seed)`` and are not ``pmpx``'s JAX
+stream.
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import pickle
 import struct
 
 import numpy as np
@@ -28,7 +32,7 @@ import torch
 
 from pmpx_torch._device import resolve_device
 
-__all__ = ["load_mnist", "dataset_presence"]
+__all__ = ["load_mnist", "load_cifar10", "dataset_presence"]
 
 _IDX_NAMES = (
     "train-images-idx3-ubyte",
@@ -226,6 +230,13 @@ def load_mnist(
         y_tr, y_te = y_tr[:n_train], y_te[:n_test]
     else:
         x_tr, y_tr, x_te, y_te = _synthetic(seed, n_train, n_test, class_sep)
+    return _finish((x_tr, y_tr, x_te, y_te), label_noise, seed, dev)
+
+
+def _finish(data, label_noise: float, seed: int, dev):
+    """Label noise (drawn from ``seed + 7919``), then the arrays on
+    ``dev``: images float32, labels int64."""
+    x_tr, y_tr, x_te, y_te = data
     if label_noise > 0.0:
         rng = np.random.default_rng(seed + 7919)
         y_tr = _flip_labels(y_tr, label_noise, rng)
@@ -235,3 +246,76 @@ def load_mnist(
     as_y = lambda a: torch.from_numpy(  # noqa: E731
         np.asarray(a, np.int64)).to(dev)
     return as_x(x_tr), as_y(y_tr), as_x(x_te), as_y(y_te)
+
+
+def _try_cifar_batches():
+    """torchvision's on-disk CIFAR-10: ``cifar-10-batches-py/`` python
+    pickles with ``data`` (N, 3072) u8 rows in CHW order and ``labels``."""
+    root = os.path.join(_data_dir(), "cifar-10-batches-py")
+    train_names = [f"data_batch_{i}" for i in range(1, 6)]
+    if not all(os.path.exists(os.path.join(root, n))
+               for n in train_names + ["test_batch"]):
+        return None
+
+    def read(name):
+        p = os.path.join(root, name)
+        try:
+            with open(p, "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+        except Exception as e:
+            raise ValueError(
+                f"{p}: not a readable CIFAR-10 pickle batch ({e}); the "
+                f"file is likely truncated or corrupt: re-download it"
+            ) from e
+        if not isinstance(d, dict) or b"data" not in d or b"labels" not in d:
+            keys = list(d.keys()) if isinstance(d, dict) else type(d)
+            raise ValueError(
+                f"{p}: CIFAR-10 batch pickles must be dicts with b'data' "
+                f"and b'labels' keys (found {keys})"
+            )
+        x = np.asarray(d[b"data"], dtype=np.uint8)
+        if x.ndim != 2 or x.shape[1] != 3072:
+            raise ValueError(
+                f"{p}: b'data' rows must be 3072-byte CHW images, got "
+                f"shape {x.shape}"
+            )
+        y = np.asarray(d[b"labels"], dtype=np.int64)
+        if len(x) != len(y):
+            raise ValueError(f"{p}: {len(x)} image rows but {len(y)} labels")
+        return x.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1), y  # NHWC
+
+    parts = [read(n) for n in train_names]
+    x_te, y_te = read("test_batch")
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]), x_te, y_te)
+
+
+def load_cifar10(
+    n_train: int = 50000,
+    n_test: int = 10000,
+    seed: int = 1,
+    class_sep: float = 1.5,
+    label_noise: float = 0.0,
+    device=None,
+):
+    """(x_train, y_train, x_test, y_test) on ``device`` (CUDA unless
+    given): images (N, 32, 32, 3) float32 (NHWC, pixels / 255 as
+    ``pmpx`` scales them), labels int64.
+
+    Reads ``cifar10.npz`` or torchvision's ``cifar-10-batches-py/`` pickles
+    from the data dir when present (sliced to ``n_train``/``n_test``), else
+    draws the synthetic stand-in of shape (32, 32, 3) from
+    ``numpy.random.default_rng(seed)``.  ``label_noise`` flips that
+    fraction of train and test labels, drawn from ``seed + 7919``.
+    """
+    dev = resolve_device(device)
+    found = _try_npz("cifar10.npz") or _try_cifar_batches()
+    if found is not None:
+        x_tr, y_tr, x_te, y_te = found
+        scale = lambda x: x.astype(np.float32) / np.float32(255.0)  # noqa
+        data = (scale(x_tr[:n_train]), y_tr[:n_train],
+                scale(x_te[:n_test]), y_te[:n_test])
+    else:
+        data = _synthetic(seed, n_train, n_test, class_sep,
+                          shape=(32, 32, 3))
+    return _finish(data, label_noise, seed, dev)

@@ -10,16 +10,19 @@ the equivalent warm start, and ``warm_start`` reads such a checkpoint.
 ``lstm_kernel`` evaluates the LSTM posterior through the CUDA kernel
 ``csrc/lstm_fused.cu``, one launch per superstep.
 
-Departures from ``pmpx``: the CNN (and its ``layout``/``cnn_kernel``
-options) waits for ROADMAP §1 item 17, and the checkpointed chunks
-(``chunk_steps``, ``resume``) for item 12: they raise
-``NotImplementedError``.  So ``scale="paper"`` runs the chain as one loop
-where ``pmpx`` cuts it into checkpointed chunks (``pmpx``'s own tests show
-that both give the same chain).
+``chunk_steps`` runs the chain as checkpointed chunks
+(:func:`pmpx_torch.checkpoint.resume_chain`), the default at
+``scale="paper"``; ``resume=True`` continues from the checkpoint, or
+adopts a shorter run of the same protocol (``adopt_prefix_run``).  The
+chunked chain is bit-equal to the one-loop chain of the same seed.
+
+Departure from ``pmpx``: the CNN (and its ``layout``/``cnn_kernel``
+options) waits for ROADMAP §1 item 17 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
@@ -37,6 +40,11 @@ MODELS = {
     "LSTM": MnistLSTM,
 }
 PAPER_STEPS = {"FC": 500000, "CNN": 250000, "LSTM": 1000000}
+# scale="paper"'s checkpoint interval: a chunk of a few seconds to a
+# minute at the card's full-batch ms per superstep (NVIDIA H100 80GB HBM3,
+# 700 W: FC PMP ~13.5 ms, LSTM PMP through lstm_fused ~8 ms; PERF.md
+# §5-6), so a crash loses at most a minute of work
+PAPER_CHUNK = {"FC": 5000, "LSTM": 5000}
 
 
 def sampler_spec(algo: str, alpha: float, N: int) -> SamplerSpec:
@@ -86,6 +94,38 @@ def _timed_chain(superstep, gen, theta0, num_steps, collect, dev):
     return theta, torch.cat([first, rest]), us
 
 
+def _chunked_chain(superstep, gen, theta0, num_steps, chunk_steps, resume,
+                   collect, out_dir, name, protocol, name_of):
+    """The chain as checkpointed chunks under ``out_dir/<name>.ckpt``.
+    ``resume`` continues from the checkpoint, or adopts the longest
+    shorter run of the same protocol (``name_of(steps)`` gives its stem).
+    Returns (final state, the whole loss trace, steady ms a superstep or
+    None)."""
+    from pmpx_torch.checkpoint import (
+        TraceAccumulator, adopt_prefix_run, resume_chain, save_checkpoint,
+        write_protocol_sidecar,
+    )
+
+    ckpt = os.path.join(out_dir, f"{name}.ckpt")
+    if resume and not os.path.exists(ckpt):
+        adopted = adopt_prefix_run(out_dir, name_of, num_steps,
+                                   keys=("loss",), protocol=protocol)
+        if adopted is not None:
+            print(f"adopted {adopted}-step prefix run as resume seed")
+    fresh = not (resume and os.path.exists(ckpt))
+    # per-chunk records on disk: a resumed run (which returns only the
+    # chunks it ran) still ends with the whole trace
+    acc = TraceAccumulator(out_dir, name, ("loss",), fresh=fresh)
+    if fresh:
+        save_checkpoint(ckpt, theta0, gen, 0)
+        write_protocol_sidecar(out_dir, name, protocol)
+    thetaF, _ = resume_chain(superstep, ckpt, num_steps, collect=collect,
+                             checkpoint_every=chunk_steps, on_chunk=acc)
+    steady = acc.steady_s_per_step(chunk_steps)
+    return (thetaF, acc.load("loss"),
+            None if steady is None else steady * 1e3)
+
+
 def run(
     model: str = "FC",
     algo: str = "pmp",
@@ -112,17 +152,15 @@ def run(
     device=None,
 ):
     """Run one MNIST posterior chain; returns ``loss_first``,
-    ``loss_last``, ``train_acc`` and ``test_acc``.  The trace's JSON
+    ``loss_last``, ``train_acc`` and ``test_acc``, and with
+    ``chunk_steps`` ``steady_ms_per_superstep`` (the median chunk's wall
+    time a superstep, the first chunk left out).  The trace's JSON
     manifest also holds ``us_per_superstep`` (CUDA events around every
-    superstep but the first) when the chain ran on a card."""
+    superstep but the first) when a one-loop chain ran on a card."""
     if model == "CNN" or layout != "nhwc" or cnn_kernel:
         raise NotImplementedError(
             "the MNIST CNN (layout, cnn_kernel) is not ported yet "
             "(ROADMAP §1 item 17)")
-    if chunk_steps or resume:
-        raise NotImplementedError(
-            "checkpointed chunks and resume are not ported yet "
-            "(ROADMAP §1 item 12)")
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}")
     if lstm_kernel and model != "LSTM":
@@ -138,6 +176,8 @@ def run(
         n_test = 10000 if n_test is None else n_test
         if num_steps is None:
             num_steps = PAPER_STEPS[model]
+        if chunk_steps is None:
+            chunk_steps = PAPER_CHUNK[model]
     else:
         n_train = 4096 if n_train is None else n_train
         n_test = 1024 if n_test is None else n_test
@@ -182,10 +222,32 @@ def run(
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     t0 = time.perf_counter()
+    us = steady_ms = None
     with torch.no_grad():
-        thetaF, losses, us = _timed_chain(superstep, gen, theta0, num_steps,
-                                          loss_of, dev)
-        losses = losses.cpu().numpy()
+        if chunk_steps:
+            protocol = {
+                "temper": float(temper),
+                "n_train": int(n_train), "n_test": int(n_test),
+                "class_sep": float(class_sep),
+                "label_noise": float(label_noise),
+                "seed": int(seed),
+                "compute_dtype": compute_dtype,
+                # a kernel run never splices onto a generic-path prefix
+                # (another rounding of the densities)
+                **({"lstm_kernel": True} if lstm_kernel else {}),
+                "layout": layout,
+                "warm_start": warm_start or None,
+                "pretrain_steps": None if warm_start else int(pretrain_steps),
+            }
+            thetaF, losses, steady_ms = _chunked_chain(
+                superstep, gen, theta0, num_steps, chunk_steps, resume,
+                loss_of, out_dir, name, protocol,
+                lambda s: reference_style_name(algo.upper(), alpha, s,
+                                               model=model, N=N))
+        else:
+            thetaF, losses, us = _timed_chain(superstep, gen, theta0,
+                                              num_steps, loss_of, dev)
+            losses = losses.cpu().numpy()
         wall_s = time.perf_counter() - t0
         acc_tr = float(target.accuracy(thetaF, x_tr, y_tr))
         acc_te = float(target.accuracy(thetaF, x_te, y_te))
@@ -199,10 +261,15 @@ def run(
     if us is not None:
         meta["us_per_superstep"] = us
         meta["device"] = torch.cuda.get_device_name(dev)
+    if steady_ms is not None:
+        meta["steady_ms_per_superstep"] = steady_ms
     save_trace(out_dir, name, {"loss": losses}, meta)
-    return {
+    out = {
         "loss_first": float(losses[0]),
         "loss_last": float(losses[-1]),
         "train_acc": acc_tr,
         "test_acc": acc_te,
     }
+    if steady_ms is not None:
+        out["steady_ms_per_superstep"] = steady_ms
+    return out

@@ -81,6 +81,27 @@ def _convert_linear(w: np.ndarray, b: np.ndarray) -> dict:
     return {"kernel": w.T, "bias": b}
 
 
+def _convert_conv(w: np.ndarray, b: np.ndarray) -> dict:
+    # torch Conv2d (out, in, kh, kw) -> flax Conv (kh, kw, in, out)
+    return {"kernel": np.transpose(w, (2, 3, 1, 0)), "bias": b}
+
+
+def _nchw_to_nhwc_rows(w_t: np.ndarray, channels: int) -> np.ndarray:
+    """Permute the input rows of an (in, out) dense kernel that reads a
+    flattened conv feature map: torch flattens NCHW (row c*H*W + h*W + w),
+    flax NHWC (row h*W*C + w*C + c).  The grid is square in every
+    reference model (LeNet 16x5x5, ``cifar_PMPhmc.py:47``)."""
+    d_in = w_t.shape[0]
+    hw, rem = divmod(d_in, channels)
+    side = int(round(hw ** 0.5))
+    if rem or side * side != hw:
+        raise ValueError(
+            f"cannot infer a square conv grid from d_in={d_in}, "
+            f"C={channels}")
+    return w_t.reshape(channels, side, side, -1).transpose(
+        1, 2, 0, 3).reshape(d_in, -1)
+
+
 def _convert_lstm(w_ih, w_hh, b_ih, b_hh) -> dict:
     """torch ``nn.LSTM`` l0 tensors -> flax ``OptimizedLSTMCell`` leaves.
     Both stack the gates (i, f, g, o); flax keeps the one bias on the
@@ -103,14 +124,16 @@ def _natural(name: str):
 def theta_from_torch_state(posterior, state: dict) -> torch.Tensor:
     """Map a torch state dict onto an ``NNPosterior``'s theta, by
     ``pmpx``'s rules: torch layers in insertion order, matched to the
-    model's flax modules by kind in natural ``Dense_k`` order; ``Linear``
-    weight/bias pairs become ``Dense`` leaves, ``nn.LSTM`` quadruples
-    (``weight_ih_l0``, ``weight_hh_l0``, both biases) ``OptimizedLSTMCell``
-    leaves with ``b_ih + b_hh`` on the hidden side.  Conv and BatchNorm
-    layers wait for the CNN and LeNet (ROADMAP §1 items 17-18) and raise
-    ``NotImplementedError``; a layer left over or missing raises
-    ``ValueError``."""
-    queues: dict = {}
+    model's flax modules by kind in natural ``Dense_k`` order.  4-D weights
+    are ``Conv`` kernels ((out, in, kh, kw) -> (kh, kw, in, out)), 2-D
+    ``Dense`` kernels, 1-D weight/bias pairs ``BatchNorm`` scale/bias (the
+    running statistics are ignored: the posterior normalises by the batch),
+    ``nn.LSTM`` quadruples (``weight_ih_l0``, ``weight_hh_l0``, both
+    biases) ``OptimizedLSTMCell`` leaves with ``b_ih + b_hh`` on the hidden
+    side.  The first Dense after a conv stack gets its input rows permuted
+    from torch's NCHW flatten to flax's NHWC.  A layer left over or missing
+    raises ``ValueError``."""
+    layers = []  # (kind, flax leaves) in the torch state's order
     seen_lstm = set()
     for k in state:
         m = re.match(r"(.*?)\.?weight_ih_l0$", k)
@@ -120,25 +143,35 @@ def theta_from_torch_state(posterior, state: dict) -> torch.Tensor:
                 continue
             seen_lstm.add(base)
             pre = base + "." if base else ""
-            queues.setdefault("lstm", []).append(_convert_lstm(
+            layers.append(("lstm", _convert_lstm(
                 state[f"{pre}weight_ih_l0"], state[f"{pre}weight_hh_l0"],
-                state[f"{pre}bias_ih_l0"], state[f"{pre}bias_hh_l0"]))
+                state[f"{pre}bias_ih_l0"], state[f"{pre}bias_hh_l0"])))
             continue
         stem = k[: -len("weight")]
         if not k.endswith("weight") or stem + "bias" not in state:
             continue
         w, b = np.asarray(state[k]), np.asarray(state[stem + "bias"])
         if w.ndim == 4:
-            raise NotImplementedError(
-                f"{k}: conv layers are not ported yet (ROADMAP §1 item 17)")
-        if w.ndim == 1:
-            raise NotImplementedError(
-                f"{k}: BatchNorm layers are not ported yet (LeNet, ROADMAP "
-                f"§1 item 18)")
-        if w.ndim == 2:
-            queues.setdefault("dense", []).append(_convert_linear(w, b))
+            layers.append(("conv", _convert_conv(w, b)))
+        elif w.ndim == 2:
+            layers.append(("dense", _convert_linear(w, b)))
+        elif w.ndim == 1:
+            layers.append(("norm", {"scale": w, "bias": b}))
 
-    kind_of = {"Dense": "dense", "OptimizedLSTMCell": "lstm"}
+    queues: dict = {}
+    channels, first_dense = None, True
+    for kind, leaves in layers:
+        if kind == "conv":
+            channels = leaves["kernel"].shape[-1]
+        elif kind == "dense" and first_dense:
+            first_dense = False
+            if channels is not None:
+                leaves = dict(leaves, kernel=_nchw_to_nhwc_rows(
+                    leaves["kernel"], int(channels)))
+        queues.setdefault(kind, []).append(leaves)
+
+    kind_of = {"Conv": "conv", "Dense": "dense", "BatchNorm": "norm",
+               "OptimizedLSTMCell": "lstm"}
     modules = sorted({path.split(".")[0] for path, _, _ in posterior.layout},
                      key=_natural)
     params = {}

@@ -5,15 +5,18 @@
 | MnistMLP   | 28^2-512-256-128-10 FC net, ``complex_nets/Mnist/FC/PMP_FC.py:21-36`` | yes |
 | MnistCNN   | 2-conv CNN, ``complex_nets/Mnist/CNN/PMP_CNN.py:23-44`` | ROADMAP §1 item 17 |
 | MnistLSTM  | LSTM(28->64) + Linear(10), ``complex_nets/Mnist/LSTM/PMP_LSTM.py:22-43`` | yes |
-| LeNet      | CIFAR-10 LeNet w/ BatchNorm, ``complex_nets/Cifar-10/cifar_PMPhmc.py:33-55`` | item 18 |
-| BayesMLP   | torchbnn BayesLinear 784-1024-10 mean-field net, ``Bayesian Network Training/main.py:173-177`` | item 16 |
+| LeNet      | CIFAR-10 LeNet w/ BatchNorm, ``complex_nets/Cifar-10/cifar_PMPhmc.py:33-55`` | yes |
+| BayesMLP   | torchbnn BayesLinear 784-1024-10 mean-field net, ``Bayesian Network Training/main.py:173-177`` | yes |
+| PackedLeNet, PackedMnistCNN | channel-packed layouts (``pmpx/models/packed.py``) | ROADMAP §1 item 17 |
 
 Each model is an ``nn.Module`` whose state-dict keys are flax's parameter
 paths joined by dots, and whose ``flax_layout()`` lists (path, shape,
 initialiser) in ``pmpx``'s flat-theta order.
 """
 
+from pmpx_torch.models.bnn import BayesMLP
+from pmpx_torch.models.lenet import LeNet
 from pmpx_torch.models.lstm import MnistLSTM
 from pmpx_torch.models.mlp import MnistMLP
 
-__all__ = ["MnistMLP", "MnistLSTM"]
+__all__ = ["MnistMLP", "MnistLSTM", "LeNet", "BayesMLP"]

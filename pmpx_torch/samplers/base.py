@@ -114,9 +114,13 @@ def run_chain(
     superstep; its draws advance its Philox offset, so a chain is
     reproducible from the generator's seed.  The stream differs from
     ``jax.random``'s: tests that compare the two inject the same noise
-    into each superstep.  Checkpoint/resume is not ported yet; a bitwise
-    resume will need the state of the generator to be a pure function of
-    (seed, step).
+    into each superstep.  Checkpoint/resume (:mod:`pmpx_torch.checkpoint`)
+    saves the generator's state (``get_state``) beside the chain state at
+    each chunk boundary and restores it (``set_state``) on resume; the
+    state is not derived from the step.  So chunks of ``run_chain``, with
+    or without a resume between them, draw what one ``run_chain`` of the
+    same seed and total step count draws, and give the same chain bit for
+    bit.
     """
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")

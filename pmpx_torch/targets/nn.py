@@ -1,5 +1,5 @@
 """Neural-network posteriors as flattened-parameter targets (port of
-``pmpx/targets/nn.py``, deterministic models).
+``pmpx/targets/nn.py``).
 
 The chain state is the raveled parameter vector theta in R^d, laid out as
 ``pmpx`` ravels the flax tree (``ravel_pytree``: sorted keys, leaf by
@@ -9,7 +9,12 @@ leaf).  The layout is the model's explicit ``flax_layout()`` list of
 ``pmpx`` means the same network here.  All P speculative networks evaluate
 in one ``torch.func.vmap`` of ``functional_call`` over the full batch.
 
-Stochastic models (BayesMLP) are not ported yet (ROADMAP §1 item 16).
+Supports deterministic models (MLP, LSTM, and LeNet, whose BatchNorm runs
+on the batch's statistics and keeps no state outside theta) and
+stochastic ones (BayesMLP): with ``stochastic=True`` every density
+evaluation draws fresh weight noise from the generator the sampler passes
+(``needs_rng``), one draw per proposal, outside the vmap (a random op
+under ``vmap`` cannot take an explicit generator) and passed in batched.
 """
 
 from __future__ import annotations
@@ -33,14 +38,24 @@ _TRUNC_STD = 0.87962566103423978
 
 def _init_leaf(shape, init: str, gen: torch.Generator) -> torch.Tensor:
     """flax's initialiser ``init`` for one leaf, drawn on the CPU from
-    ``gen`` (the law of flax's; not its numbers)."""
+    ``gen`` (the law of flax's; not its numbers).  The fan-in of a kernel
+    is the product of all but its last axis (flax's ``in_axis=-2`` times
+    the receptive field of a conv kernel (kh, kw, in, out))."""
     t = torch.zeros(shape)
+    fan_in = math.prod(shape[:-1])
     if init == "lecun_normal":
-        std = math.sqrt(1.0 / shape[-2]) / _TRUNC_STD
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
         torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                     generator=gen)
+    elif init == "kaiming_uniform":
+        lim = math.sqrt(6.0 / fan_in)
+        torch.nn.init.uniform_(t, -lim, lim, generator=gen)
     elif init == "orthogonal":
         torch.nn.init.orthogonal_(t, generator=gen)
+    elif init == "ones":
+        t.fill_(1.0)
+    elif init.startswith("const:"):
+        t.fill_(float(init[len("const:"):]))
     elif init != "zeros":
         raise ValueError(f"unknown initialiser {init!r}")
     return t
@@ -70,7 +85,9 @@ class NNPosterior:
     networks evaluate at once (``vmap``'s ``chunk_size``; it must divide
     P).  ``seed`` draws :meth:`init_theta` from flax's initialisers with a
     ``torch.Generator``.  ``X`` and ``Y`` move to ``device`` (CUDA unless
-    given).
+    given).  ``stochastic=True`` (a model with ``noise_shapes()``, such as
+    ``BayesMLP``) makes the density methods take ``generator=``, from
+    which each evaluation draws its own weight noise.
     """
 
     def __init__(
@@ -85,11 +102,10 @@ class NNPosterior:
         proposal_chunk: Optional[int] = None,
         device=None,
     ):
-        if stochastic:
-            raise NotImplementedError(
-                "stochastic NN posteriors (BayesMLP) are not ported yet "
-                "(ROADMAP §1 item 16)"
-            )
+        if stochastic and not hasattr(model, "noise_shapes"):
+            raise ValueError(
+                f"stochastic=True needs a model that takes its weight "
+                f"noise (noise_shapes()); {type(model).__name__} does not")
         dev = resolve_device(device)
         self.device = dev
         self.model = model.to(dev)
@@ -98,8 +114,9 @@ class NNPosterior:
         self.X = X if compute_dtype is None else X.to(compute_dtype)
         self.Y = torch.as_tensor(Y, device=dev).long()
         self.temper = float(temper)
-        self.stochastic = False
-        self.needs_rng = False
+        self.stochastic = bool(stochastic)
+        self.needs_rng = self.stochastic
+        self._noise_shapes = model.noise_shapes() if stochastic else {}
         self.proposal_chunk = proposal_chunk
         self.layout = model.flax_layout()
         self._slices = {}
@@ -177,15 +194,28 @@ class NNPosterior:
         return self.ravel(_flatten(params))
 
     # ------------------------------------------------------------------
-    def _logits(self, theta: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    def _noise(self, generator, lead=()) -> Optional[dict]:
+        """One forward pass's weight noise for each of ``lead`` networks,
+        drawn in ``noise_shapes()`` order from ``generator`` (None for a
+        deterministic model)."""
+        if not self.stochastic:
+            return None
+        return {k: torch.randn((*lead, *shape), generator=generator,
+                               device=self.device)
+                for k, shape in self._noise_shapes.items()}
+
+    def _logits(self, theta: torch.Tensor, X: torch.Tensor,
+                noise: Optional[dict] = None) -> torch.Tensor:
         params = self.unravel(theta)
         if self.compute_dtype is not None:
             params = {k: v.to(self.compute_dtype) for k, v in params.items()}
             X = X.to(self.compute_dtype)
-        return functional_call(self.model, params, (X,))
+        args = (X,) if noise is None else (X, noise)
+        return functional_call(self.model, params, args)
 
-    def _neg_loss(self, theta: torch.Tensor) -> torch.Tensor:
-        logits = self._logits(theta, self.X)
+    def _neg_loss(self, theta: torch.Tensor,
+                  noise: Optional[dict] = None) -> torch.Tensor:
+        logits = self._logits(theta, self.X, noise)
         return -self.temper * F.cross_entropy(logits.float(), self.Y)
 
     def _chunk(self, P: int) -> Optional[int]:
@@ -199,30 +229,41 @@ class NNPosterior:
         return c
 
     # -- Target protocol ------------------------------------------------
-    def log_prob(self, theta: torch.Tensor) -> torch.Tensor:
+    def log_prob(self, theta: torch.Tensor, generator=None) -> torch.Tensor:
         if self._fast_batch is not None:
             # singles through the kernel too: acceptance ratios compare
             # densities of ONE floating-point evaluation order
             return self._fast_batch(theta[None])[0]
-        return self._neg_loss(theta)
+        return self._neg_loss(theta, self._noise(generator))
 
-    def log_prob_batch(self, Theta: torch.Tensor) -> torch.Tensor:
+    def log_prob_batch(self, Theta: torch.Tensor,
+                       generator=None) -> torch.Tensor:
         if self._fast_batch is not None:
             return self._fast_batch(Theta)
-        return vmap(self._neg_loss,
-                    chunk_size=self._chunk(Theta.shape[0]))(Theta)
+        chunk = self._chunk(Theta.shape[0])
+        if self.stochastic:
+            noise = self._noise(generator, (Theta.shape[0],))
+            return vmap(self._neg_loss, chunk_size=chunk)(Theta, noise)
+        return vmap(self._neg_loss, chunk_size=chunk)(Theta)
 
-    def value_and_grad_batch(self, Theta: torch.Tensor):
-        grads, values = vmap(grad_and_value(self._neg_loss),
-                             chunk_size=self._chunk(Theta.shape[0]))(Theta)
+    def value_and_grad_batch(self, Theta: torch.Tensor, generator=None):
+        chunk = self._chunk(Theta.shape[0])
+        vg = vmap(grad_and_value(self._neg_loss), chunk_size=chunk)
+        if self.stochastic:
+            grads, values = vg(Theta, self._noise(generator,
+                                                  (Theta.shape[0],)))
+        else:
+            grads, values = vg(Theta)
         return values, grads
 
     # ------------------------------------------------------------------
-    def accuracy(self, theta: torch.Tensor, X=None, Y=None) -> torch.Tensor:
+    def accuracy(self, theta: torch.Tensor, X=None, Y=None,
+                 generator=None) -> torch.Tensor:
         """Classification accuracy (the reference logs train/test correct
-        ratios, ``PMP_FC.py:147-156``), through the generic forward."""
+        ratios, ``PMP_FC.py:147-156``), through the generic forward; a
+        stochastic model draws one set of weights from ``generator``."""
         X = self.X if X is None else X
         Y = self.Y if Y is None else Y
         with torch.no_grad():
-            logits = self._logits(theta, X)
+            logits = self._logits(theta, X, self._noise(generator))
             return (logits.argmax(dim=-1) == Y).float().mean()

@@ -636,3 +636,77 @@ def test_batched_superstep_on_the_card_matches_cpu(cuda, spec):
     torch.cuda.synchronize()
     assert launches["linreg_rss"] - before == T
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+# checkpoint/resume and the HMC family on the card
+
+
+@pytest.mark.gpu
+def test_cuda_generator_state_restores_the_offset(cuda, tmp_path):
+    """A CUDA Philox generator's saved state (seed and offset) restores
+    the stream exactly, through a checkpoint file."""
+    from pmpx_torch import checkpoint as ck
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    torch.randn(1001, generator=g, device=cuda)  # move the offset
+    path = ck.save_checkpoint(str(tmp_path / "g.ckpt"),
+                              torch.zeros(3, device=cuda), g, 7)
+    want = torch.randn(4096, generator=g, device=cuda)
+    _, g2, step, _ = ck.load_checkpoint(path)
+    assert step == 7 and g2.device.type == "cuda"
+    assert torch.equal(torch.randn(4096, generator=g2, device=cuda), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["pmp", "sp_hmc", "mp_hmc", "pmp_hmc"])
+def test_chunked_chain_on_the_card_is_one_run_chain(cuda, tmp_path, algo):
+    """On the sweep (linreg_rss a density evaluation), chunks of 7 with a
+    checkpoint between them give one run_chain's states bit for bit."""
+    from pmpx_torch import checkpoint as ck
+    from pmpx_torch.config import SamplerSpec
+    from pmpx_torch.samplers.base import run_chain
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    x, y = make_synthetic_linreg(g, 100_000)
+    tgt = BayesLinReg(x, y, temper=1 / 2000, method="sweep", device=cuda)
+    step = 0.02 if algo == "pmp" else 0.0005
+    sup = SamplerSpec(algo=algo, N=3, depth=2, step_size=step).build(tgt)
+    theta0 = torch.tensor([-1.0, 2.0, 0.5], device=cuda)
+    g.manual_seed(1)
+    with torch.no_grad():
+        before = launches["linreg_rss"]
+        thF, recs = run_chain(sup, g, theta0, 30,
+                              collect=lambda th, o: th)
+        torch.cuda.synchronize()
+        assert launches["linreg_rss"] > before
+        path = str(tmp_path / "c.ckpt")
+        g.manual_seed(1)
+        ck.save_checkpoint(path, theta0, g, 0)
+        th, chunks = ck.resume_chain(sup, path, 30,
+                                     collect=lambda th, o: th,
+                                     checkpoint_every=7)
+    assert torch.equal(th, thF)
+    assert torch.equal(torch.cat([torch.from_numpy(c) for c in chunks]),
+                       recs.cpu())
+
+
+@pytest.mark.gpu
+def test_lenet_posterior_on_the_card_matches_the_cpu(cuda):
+    """LeNet's value and gradient on the card (cuDNN's convolutions, TF32
+    off) against the CPU's, P = 4 over 64 images."""
+    from pmpx_torch.models import LeNet
+    from pmpx_torch.targets.nn import NNPosterior
+
+    g = torch.Generator().manual_seed(0)
+    X = torch.randn(64, 32, 32, 3, generator=g)
+    Y = torch.randint(0, 10, (64,), generator=g)
+    cpu = NNPosterior(LeNet(), X, Y, device="cpu")
+    gpu = NNPosterior(LeNet(), X, Y, device=cuda)
+    Theta = cpu.init_theta() + 0.05 * torch.randn(4, cpu.d, generator=g)
+    cv, cg = cpu.value_and_grad_batch(Theta)
+    gv, gg = gpu.value_and_grad_batch(Theta.to(cuda))
+    torch.testing.assert_close(gv.cpu(), cv, rtol=1e-5, atol=0)
+    torch.testing.assert_close(gg.cpu(), cg, rtol=0,
+                               atol=1e-4 * float(cg.abs().max()))

@@ -180,14 +180,16 @@ def test_theta_from_torch_state_matches_pmpx(tmp_path, model):
         tinterop.theta_from_torch_state(tpost, state)
 
 
-@pytest.mark.parametrize("shape,match", [((4, 1, 3, 3), "item 17"),
-                                         ((4,), "item 18")])
+@pytest.mark.parametrize("shape,match", [((4, 1, 3, 3), "expects a .dense"),
+                                         ((4,), "expects a .dense")])
 def test_theta_from_torch_state_refuses_conv_and_norm_layers(shape, match):
     X = np.zeros((2, 28, 28), np.float32)
     tpost = NNPosterior(MnistMLP(), X, np.zeros(2), device="cpu")
+    # an MLP has no conv or BatchNorm module for them (LeNet's mapping is
+    # tests/test_torch_lenet_bnn.py's)
     state = {"layer.weight": np.zeros(shape, np.float32),
              "layer.bias": np.zeros(4, np.float32)}
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         tinterop.theta_from_torch_state(tpost, state)
 
 
@@ -324,8 +326,8 @@ def test_mnist_run_pretrain_path_and_cli(tmp_path, monkeypatch, capsys):
     (dict(model="CNN"), "item 17"),
     (dict(layout="packed"), "item 17"),
     (dict(cnn_kernel=True), "item 17"),
-    (dict(chunk_steps=10), "item 12"),
-    (dict(resume=True), "item 12"),
+    (dict(model="CNN", chunk_steps=10), "item 17"),
+    (dict(layout="packed", resume=True), "item 17"),
 ])
 def test_mnist_run_not_ported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -134,8 +134,11 @@ def test_bf16_close_to_pmpx(model):
 
 
 def test_stochastic_raises():
+    """A deterministic model takes no weight noise: stochastic=True over
+    it raises (BayesMLP's stochastic posterior is
+    tests/test_torch_lenet_bnn.py's)."""
     X, Y = _data(4)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="noise_shapes"):
         NNPosterior(MnistMLP(), X, Y, stochastic=True, device="cpu")
 
 

@@ -171,25 +171,16 @@ def test_configs_map_onto_pmp_as_pmpx_maps_them():
         tmp.MPConfig(N=0, step_size=0.1).as_pmp()
 
 
-# pmpx's HMC knobs, left out of the port's SamplerSpec until the HMC
-# samplers that read them are ported
-_HMC_FIELDS = ("mom_scale", "num_leapfrog", "accept_scale")
-
-
 def test_spec_fields_defaults_and_reference_nn():
-    jf = [(f.name, f.default) for f in dataclasses.fields(JSpec)
-          if f.name not in _HMC_FIELDS]
+    jf = [(f.name, f.default) for f in dataclasses.fields(JSpec)]
     tf = [(f.name, f.default) for f in dataclasses.fields(TSpec)]
     assert tf == jf
-    for name in _HMC_FIELDS:
-        assert name in {f.name for f in dataclasses.fields(JSpec)}
-        with pytest.raises(TypeError):
-            TSpec(algo="pmp", **{name: 2})
-    for algo, N in [("pmp", 7), ("psp", 1023), ("mp", 1023), ("mh", 3)]:
-        j = dataclasses.asdict(JSpec.reference_nn(algo, N, step_size=0.3))
-        t = TSpec.reference_nn(algo, N, step_size=0.3)
-        assert dataclasses.asdict(t) == {
-            k: v for k, v in j.items() if k not in _HMC_FIELDS}
+    for algo, N in [("pmp", 7), ("psp", 1023), ("mp", 1023), ("mh", 3),
+                    ("pmp_hmc", 7), ("mp_hmc", 7), ("sp_hmc", 7)]:
+        j = dataclasses.asdict(JSpec.reference_nn(algo, N, step_size=0.3,
+                                                  mom_scale=5e-4))
+        t = TSpec.reference_nn(algo, N, step_size=0.3, mom_scale=5e-4)
+        assert dataclasses.asdict(t) == j
     with pytest.raises(ValueError):
         TSpec.reference_nn("pmp", 6)  # 7 states is not a binary tree
 
@@ -208,6 +199,11 @@ def test_spec_validation_matches_pmpx():
         with pytest.raises(ValueError):
             TSpec(**kw).build(tt)
     for algo in ("sp_hmc", "mp_hmc", "pmp_hmc"):
-        JSpec(algo=algo).build(jt)  # pmpx has them
-        with pytest.raises(NotImplementedError, match="item 15"):
-            TSpec(algo=algo).build(tt)
+        JSpec(algo=algo).build(jt)
+        TSpec(algo=algo).build(tt)
+    for kw in (dict(algo="pmp_hmc", rule="bogus"),
+               dict(algo="pmp_hmc", selection="bogus")):
+        with pytest.raises(ValueError):
+            JSpec(**kw).build(jt)
+        with pytest.raises(ValueError):
+            TSpec(**kw).build(tt)
