@@ -81,7 +81,20 @@ Phases, each printing its wall time:
    12d. the MNIST-LSTM PMP chain through ``lstm_fused`` in one loop, in
    checkpointed chunks, and interrupted and resumed by ``adopt_prefix_run``,
    bit-equal; 12e. ``resilience`` (SIGKILLed child processes on the card),
-   its assembled trace bitwise identical to an uninterrupted child's.
+   its assembled trace bitwise identical to an uninterrupted child's;
+13. the MNIST CNN and the rest of the NN zoo's tooling at full width (the
+   step counts cut, listed in its JSON line), under
+   ``torch.use_deterministic_algorithms``: 13a. the ``cnn_fast`` density
+   at the warm start held to the generic path's, ``mnist.run(model="CNN",
+   scale="paper")`` for MH, MP and PMP on the generic path and PMP through
+   ``cnn_fast``, with ms per superstep and peak memory, and the
+   ``cnn_fast`` chain interrupted after its first chunk and resumed,
+   bit-equal; 13b. the channel-packed LeNet's density and gradient at
+   theta0 held to LeNet's, and ``cifar_hmc(layout="packed")``; 13c.
+   ``nn_perf``'s CNN cells at full batch, ``footprint`` at P = 2 (every
+   variant a peak), ``bf16_delta`` on the CNN cells, and a
+   ``pmpx_torch.profiling`` trace of CNN supersteps naming its conv and
+   GEMM kernels; 13d. ``python -m pmpx_torch.cli doctor`` names the card.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -267,14 +280,29 @@ HMC_LINREG = (
 )
 # phase 12b-d: the paper's widths, num_steps cut (the paper's 50,000 for
 # CIFAR, 30,000 for the BNN, 1,000,000 for the MNIST LSTM), in chunks
-CIFAR_STEPS, CIFAR_CHUNK = 20, 10
+CIFAR_STEPS, CIFAR_CHUNK = 10, 5
 BNN_STEPS, BNN_CHUNK = 30, 10
 LSTM_CKPT_STEPS, LSTM_CKPT_CHUNK = 20, 10
 # phase 12e: resilience at n = 100,000, a depth-5 binary tree (P = 32)
-RES_STEPS, RES_EVERY, RES_KILLS, RES_DEPTH = 6000, 1000, 2, 5
+RES_STEPS, RES_EVERY, RES_KILLS, RES_DEPTH = 3000, 500, 2, 5
 # phase 12b-c's fallback gate where torch names an op on the path without a
 # deterministic CUDA version: the traces within this, relative
 RESUME_RTOL = 1e-5
+# phase 13: the MNIST CNN at scale="paper" (60,000 / 10,000 images, pretrain
+# 50, N = 7), num_steps and the chunk cut (the paper's 250,000 in chunks of
+# 250); the cnn_fast density at the warm start against the generic path's
+# in f32 (pmpx's tests/test_cnn_fast.py:36-43); the packed LeNet against
+# the nhwc one at theta0 (tests/test_torch_convpack.py: values rtol 1e-5,
+# gradients within 1e-4 max|g|); SP-HMC supersteps of the packed cifar_hmc
+# (the paper's 50,000; its Adam warm start 10 of cifar_hmc's 30 steps);
+# nn_perf's table at full batch (pmpx's 20 iters),
+# footprint at P = 2, bf16_delta (pmpx's 32 supersteps); the trace's
+# supersteps
+CNN_STEPS, CNN_CHUNK = 20, 10
+CNN_FAST_RTOL = 2e-5
+PACKED_VAL_RTOL, PACKED_GRAD_TOL = 1e-5, 1e-4
+PACKED_STEPS, PACKED_CHUNK, PACKED_PRETRAIN = 4, 2, 10
+NNPERF_ITERS, FOOTPRINT_P, BF16_ITERS, TRACE_STEPS = 3, 2, 8, 2
 
 # phase 6's P sweeps on the benchmark cell's data: one SWEEP_STEPS-superstep
 # launch per (N, depth), each timed over SWEEP_REPS, emit="all" up to its
@@ -946,6 +974,243 @@ def phase12(dev, name: str, smi: str, bench) -> dict:
             + ", ".join(f"{lb} {n}" for lb, _, n in HMC_LINREG),
         ], "launches": p12}))
     return p12
+
+
+def phase13(dev, name: str, smi: str) -> dict:
+    """Phase 13's runs and gates (the MNIST CNN, the packed layouts,
+    nn_perf, profiling and the CLI's doctor); returns its launches by
+    kernel (none is expected: the CNN and the packed layouts run cuDNN's
+    and cuBLAS's kernels)."""
+    from pmpx_torch import profiling
+    from pmpx_torch.data import load_cifar10, load_mnist
+    from pmpx_torch.experiments import cifar_hmc, nn_perf
+    from pmpx_torch.experiments import mnist as mnist_mod
+    from pmpx_torch.kernels import cnn_fast, launches, reset_launches
+    from pmpx_torch.metrics.recorder import load_trace, reference_style_name
+    from pmpx_torch.models import LeNet, MnistCNN, PackedLeNet
+    from pmpx_torch.samplers.base import run_chain
+    from pmpx_torch.targets.nn import NNPosterior
+
+    p13 = {}
+    torch.backends.cudnn.benchmark = False
+
+    def counted(fn):
+        """fn() with the launches counted from 0 and added to the
+        phase's, and the card's peak memory; returns (fn's result, wall s,
+        peak GiB)."""
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, v in launches.items():
+            if v:
+                p13[k] = p13.get(k, 0) + v
+        return out, wall, torch.cuda.max_memory_allocated() / 2**30
+
+    with deterministic() as flagged, tempfile.TemporaryDirectory() as tmp:
+        # 13a: the cnn_fast density at the warm start (run()'s Adam
+        # pretrain) against the generic path's, one and P = 8 states
+        x_tr, y_tr, _, _ = load_mnist(60_000, 10_000, device=dev)
+        post = NNPosterior(MnistCNN(), x_tr, y_tr, temper=10.0, device=dev)
+        th_ws = mnist_mod.pretrain(post, 50)
+        g = torch.Generator(device=dev)
+        g.manual_seed(13)
+        Theta = th_ws + 1e-4 * torch.randn((8, post.d), generator=g,
+                                           device=dev)
+        with torch.no_grad():
+            generic = post.log_prob_batch(Theta)
+            one = post.log_prob(th_ws)
+            cnn_fast.attach(post)
+            fast = post.log_prob_batch(Theta)
+            fast_one = post.log_prob(th_ws)
+        rel = float(((fast - generic).abs() / generic.abs()).max())
+        rel_one = abs(float(fast_one) - float(one)) / abs(float(one))
+        print(json.dumps({"cnn_fast_warm_start": {
+            "generic": generic.tolist(), "cnn_fast": fast.tolist(),
+            "max_rel": rel, "log_prob_rel": rel_one, "rtol": CNN_FAST_RTOL},
+            "device": name}))
+        require(rel <= CNN_FAST_RTOL and rel_one <= CNN_FAST_RTOL,
+                f"13a: cnn_fast within rtol {CNN_FAST_RTOL} of the generic "
+                f"path at the warm start ({rel:.3g}, {rel_one:.3g})")
+        del post, x_tr, y_tr, Theta
+
+        # 13a: MH, MP and PMP on the generic path, PMP through cnn_fast,
+        # each in checkpointed chunks; the kernel-path PMP run again,
+        # interrupted after its first chunk and resumed
+        cnn_runs = {}
+        for label, algo, kern, steps, extra, sub in (
+                ("mh", "mh", False, CNN_STEPS, {}, "mh"),
+                ("mp", "mp", False, CNN_STEPS, {}, "mp"),
+                ("pmp", "pmp", False, CNN_STEPS, {}, "pmp"),
+                ("pmp_cnn_fast", "pmp", True, CNN_STEPS, {}, "fast"),
+                ("pmp_cnn_fast_interrupted", "pmp", True, CNN_CHUNK, {},
+                 "cut"),
+                ("pmp_cnn_fast_resumed", "pmp", True, CNN_STEPS,
+                 {"resume": True}, "cut")):
+            out, wall, peak = counted(lambda: mnist_mod.run(
+                model="CNN", algo=algo, N=7, scale="paper", num_steps=steps,
+                chunk_steps=CNN_CHUNK, cnn_kernel=kern,
+                out_dir=f"{tmp}/cnn/{sub}", device=dev, **extra))
+            stem = reference_style_name(algo.upper(), 1e-4, steps,
+                                        model="CNN", N=7)
+            trace = load_trace(f"{tmp}/cnn/{sub}/{stem}.npz")
+            require(bool(np.isfinite(trace["loss"]).all()),
+                    f"13a {label}: finite losses")
+            rec = {"cnn": label, "algo": algo, "N": 7, "cnn_kernel": kern,
+                   **out, "num_steps": steps, "chunk_steps": CNN_CHUNK,
+                   "peak_gib": peak, "wall_s": wall, "n_train": 60_000,
+                   "n_test": 10_000, "device": name, "power": smi}
+            rec["distinct_losses"] = int(np.unique(trace["loss"]).size)
+            if "steady_ms_per_superstep" in out:  # two chunks or more ran
+                rec["ms_per_superstep"] = out["steady_ms_per_superstep"]
+            if algo != "mh":  # MH at temper 1000 may stay a while
+                require(rec["distinct_losses"] > 1,
+                        f"13a {label}: the chain moved")
+            cnn_runs[label] = trace
+            print(json.dumps(rec))
+        gate = resumed_gate("13a pmp cnn_fast resumed",
+                            cnn_runs["pmp_cnn_fast"],
+                            cnn_runs["pmp_cnn_fast_resumed"], flagged)
+        print(json.dumps({"cnn_resume": gate, "device": name}))
+
+        # 13b: the packed LeNet against the nhwc one at theta0, then the
+        # packed cifar_hmc's SP-HMC supersteps
+        xc, yc, _, _ = load_cifar10(50_000, 10_000, device=dev)
+        nhwc = NNPosterior(LeNet(), xc, yc, device=dev)
+        packed = NNPosterior(PackedLeNet(), xc, yc, device=dev)
+        theta0 = nhwc.init_theta()
+        require(torch.equal(packed.init_theta(), theta0),
+                "13b: the packed LeNet shares LeNet's theta0")
+        with torch.no_grad():
+            nv, ng = nhwc.value_and_grad_batch(theta0[None])
+            (pv, pg), wall_pk, peak_pk = counted(
+                lambda: packed.value_and_grad_batch(theta0[None]))
+        v_rel = float((pv - nv).abs().max() / nv.abs().max())
+        g_err = float((pg - ng).abs().max() / ng.abs().max())
+        print(json.dumps({"packed_lenet_vs_nhwc": {
+            "value_rel": v_rel, "grad_err_over_max": g_err,
+            "value": nv.tolist(), "packed_grad_wall_s": wall_pk,
+            "packed_grad_peak_gib": peak_pk}, "device": name}))
+        require(v_rel <= PACKED_VAL_RTOL and g_err <= PACKED_GRAD_TOL,
+                f"13b: packed LeNet's value and gradient at theta0 "
+                f"({v_rel:.3g}, {g_err:.3g})")
+        del nhwc, packed, xc, yc, nv, ng, pv, pg
+        torch.cuda.empty_cache()
+        out, wall, peak = counted(lambda: cifar_hmc.run(
+            algo="sp_hmc", layout="packed", scale="paper",
+            num_steps=PACKED_STEPS, chunk_steps=PACKED_CHUNK,
+            pretrain_steps=PACKED_PRETRAIN,
+            out_dir=f"{tmp}/cifar_packed", device=dev))
+        for k in ("loss_first", "loss_last"):
+            require(math.isfinite(out[k]), f"13b packed cifar: {k} finite")
+        print(json.dumps({"cifar_packed": "sp_hmc", **out,
+                          "ms_per_superstep": out["steady_ms_per_superstep"],
+                          "num_steps": PACKED_STEPS,
+                          "chunk_steps": PACKED_CHUNK, "peak_gib": peak,
+                          "wall_s": wall, "device": name, "power": smi}))
+
+        # 13c: nn_perf's CNN cells at full batch, footprint, bf16_delta
+        table, wall, peak = counted(lambda: nn_perf.run(
+            mode="table", only="mnist_CNN_*", iters=NNPERF_ITERS,
+            out_dir=tmp, device=dev))
+        cells = table["us_per_superstep"]
+        require(len(cells) == 6 and all(isinstance(v, float) and v > 0
+                                        for v in cells.values()),
+                f"13c: every CNN cell of nn_perf's table timed: {cells}")
+        print(json.dumps({"nn_perf_table": cells, "iters": NNPERF_ITERS,
+                          "n_mnist": 60_000, "wall_s": wall,
+                          "peak_gib": peak, "device": name, "power": smi}))
+        foot, wall, _ = counted(lambda: nn_perf.footprint(
+            P=FOOTPRINT_P, n_train=50_000, device=dev))
+        variants = {k: v for k, v in foot.items()
+                    if k.startswith("lenet_grad_")}
+        variants.update({f"quarter_{k}": v for k, v in foot["quarter"].items()
+                         if k.startswith("lenet_grad_")})
+        require(len(variants) == 9 and all(
+            not v.get("oom") and v.get("peak_gib", 0) > 0
+            for v in variants.values()),
+            f"13c: every footprint variant reports a peak: {variants}")
+        print(json.dumps({"nn_perf_footprint": foot, "wall_s": wall,
+                          "power": smi}))
+        delta, wall, _ = counted(lambda: nn_perf.bf16_delta(
+            iters=BF16_ITERS, only="mnist_CNN_*", device=dev))
+        require(len(delta) == 3 and all("error" not in c
+                                        for c in delta.values()),
+                f"13c: bf16_delta's CNN cells: {delta}")
+        print(json.dumps({"nn_perf_bf16_delta": delta, "iters": BF16_ITERS,
+                          "wall_s": wall, "device": name}))
+
+        # a trace of TRACE_STEPS CNN PMP supersteps on the generic path
+        x_tr, y_tr, _, _ = load_mnist(60_000, 10_000, device=dev)
+        post = NNPosterior(MnistCNN(), x_tr, y_tr, temper=10.0, device=dev)
+        sup = mnist_mod.sampler_spec("pmp", 1e-4, 7).build(post)
+        g.manual_seed(1)
+        theta = post.init_theta()
+        with torch.no_grad():
+            run_chain(sup, g, theta, 1)
+            torch.cuda.synchronize()
+            with profiling.trace(f"{tmp}/trace"):
+                t0 = time.perf_counter()
+                run_chain(sup, g, theta, TRACE_STEPS)
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+        kern = profiling.device_time_us(f"{tmp}/trace")
+        # the same supersteps with deterministic algorithms off
+        torch.use_deterministic_algorithms(False)
+        with torch.no_grad():
+            run_chain(sup, g, theta, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_chain(sup, g, theta, TRACE_STEPS)
+            torch.cuda.synchronize()
+            free_us = (time.perf_counter() - t0) * 1e6
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        conv = {k: v for k, v in kern.items() if re.search(
+            r"conv|fprop|dgrad|wgrad|cudnn", k, re.I)}
+        gemm = {k: v for k, v in kern.items()
+                if "gemm" in k.lower() and k not in conv}
+        total = sum(kern.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
+        print(json.dumps({"cnn_trace": {
+            "supersteps": TRACE_STEPS, "kernel_us_total": total,
+            "window_us": window_us, "idle_share": 1 - total / window_us,
+            "ms_per_superstep_deterministic": window_us / TRACE_STEPS / 1e3,
+            "ms_per_superstep_not_deterministic":
+                free_us / TRACE_STEPS / 1e3,
+            "conv_us": sum(conv.values()), "gemm_us": sum(gemm.values()),
+            "kernels": len(kern),
+            "top": [{"kernel": k[:90], "us": v, "share": v / total}
+                    for k, v in top]}, "device": name}))
+        require(total > 0 and conv and gemm,
+                "13c: the trace's kernel time names conv and GEMM kernels")
+        del post, x_tr, y_tr
+
+    # 13d: the CLI's doctor names the card
+    res = subprocess.run([sys.executable, "-m", "pmpx_torch.cli", "doctor",
+                          "--probe-timeout", "120"], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parent)
+    report = json.loads(res.stdout[res.stdout.index("{"):])
+    print(json.dumps({"doctor": report, "rc": res.returncode}))
+    require(res.returncode == 0 and report["device"]["ok"]
+            and report["device"]["device_kind"] == name,
+            f"13d: doctor exits 0 and names the card: {res.stderr[-300:]}")
+
+    print(json.dumps({
+        "phase13_reduced": [
+            f"mnist CNN num_steps {CNN_STEPS} in chunks of {CNN_CHUNK} (the "
+            "paper's 250,000 in chunks of 250)",
+            f"cifar_hmc packed SP-HMC num_steps {PACKED_STEPS} in chunks of "
+            f"{PACKED_CHUNK} (the paper's 50,000), pretrain_steps "
+            f"{PACKED_PRETRAIN} (cifar_hmc's 30)",
+            f"nn_perf table iters {NNPERF_ITERS} (pmpx's 20), footprint P = "
+            f"{FOOTPRINT_P} (pmpx's 8), bf16_delta iters {BF16_ITERS} "
+            "(pmpx's 32)",
+        ], "nondeterministic_ops": sorted(flagged), "launches": p13}))
+    return p13
 
 
 def main() -> int:
@@ -1985,6 +2250,12 @@ def main() -> int:
         for k in kernels:
             if k["name"] in p12:
                 k["launches"] += p12[k["name"]]
+
+    with Phase("13 the MNIST CNN, the packed layouts, nn_perf, doctor"):
+        p13 = phase13(dev, name, smi)
+        for k in kernels:
+            if k["name"] in p13:
+                k["launches"] += p13[k["name"]]
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

@@ -1,5 +1,5 @@
-"""pmpx_torch command-line interface (port of ``pmpx/cli.py``'s ``list``,
-``run``, ``convert`` and ``plot``):
+"""pmpx_torch command-line interface (port of ``pmpx/cli.py``: ``list``,
+``run``, ``convert``, ``plot`` and ``doctor``):
 
     python -m pmpx_torch.cli list
     python -m pmpx_torch.cli run time_analysis --method fused_chain \
@@ -14,14 +14,17 @@
     python -m pmpx_torch.cli run resilience --kills 2 --kill_mode sigkill
     python -m pmpx_torch.cli convert trace.pmpx --out trace.npy
     python -m pmpx_torch.cli plot results/mnist/run.npz --out run.pdf
+    python -m pmpx_torch.cli doctor --probe-timeout 60
 
 Arbitrary ``--key value`` pairs are forwarded to the experiment's ``run()``
 (ints/floats/bools/tuples parsed from the string).  ``--device`` names the
 device (CUDA unless given).  Results print as one JSON object.
 ``convert`` turns a ``TraceWriter`` file into ``.npy`` (through
 :mod:`pmpx_torch.runtime`); ``plot`` draws a saved trace's loss and
-accuracy on twin axes (it needs matplotlib).  The ``doctor`` subcommand is
-not ported yet (ROADMAP §1 item 19).
+accuracy on twin axes (it needs matplotlib).  ``doctor`` prints the
+environment and a bounded probe of the device (``--device``, CUDA unless
+given; :mod:`pmpx_torch.transport`) and exits 0 when the device answered,
+1 when it did not.
 """
 
 from __future__ import annotations
@@ -90,7 +93,25 @@ def main(argv=None):
     )
     plotp.add_argument("npz", help="recorder .npz with loss/acc arrays")
     plotp.add_argument("--out", default=None, help="output .pdf path")
+    docp = sub.add_parser(
+        "doctor", help="bounded environment/device health report "
+        "(never hangs on a wedged device)"
+    )
+    docp.add_argument(
+        "--probe-timeout", type=float, default=120.0,
+        help="seconds to wait for the device probe subprocess",
+    )
+    docp.add_argument("--device", default=None,
+                      help="torch device to probe (default: cuda)")
     args, extra = parser.parse_known_args(argv)
+
+    if args.cmd == "doctor":
+        from pmpx_torch.transport import doctor_report
+
+        report = doctor_report(probe_timeout_s=args.probe_timeout,
+                               device=args.device)
+        print(json.dumps(report, indent=2))
+        return 0 if report["device"]["ok"] else 1
 
     if args.cmd == "convert":
         arr = read_trace(args.trace)

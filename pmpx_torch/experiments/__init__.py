@@ -1,5 +1,5 @@
 """Experiment reproductions on the port (counterparts of
-``pmpx/experiments``; only what the port has so far).
+``pmpx/experiments``).
 
 | Module        | Reference protocol |
 |---------------|--------------------|
@@ -12,17 +12,18 @@
 | time_analysis | per-iteration time grid {500, 100k} x {4, 1024}, ``MP_and_PMP_time_analysis`` |
 | skewness      | skewness of chain means vs iterations (chain-batched), ``simple_net/skewness/skewness.ipynb`` |
 | correlation   | (d, D, C) sweep csv, ``complex_nets/correlation/com_dim.py`` |
-| mnist         | {FC, LSTM} x {MH, MP, PMP} NN posteriors, checkpointed chunks, ``complex_nets/Mnist`` |
+| mnist         | {FC, CNN, LSTM} x {MH, MP, PMP} NN posteriors, checkpointed chunks, ``complex_nets/Mnist`` |
 | cifar_hmc     | SP/MP/PMP-HMC on LeNet, ``complex_nets/Cifar-10`` |
 | bnn           | PMP-HMC over a mean-field BNN, ``Bayesian Network Training/main.py`` |
 | multichain    | R-hat / per-chain ESS over chain-batched runs or the fused chain farm, one card (beyond the reference) |
+| nn_perf       | NN-zoo µs per superstep, the LeNet gradient's peak memory by layout and lever, bf16 studies (beyond the reference) |
 | resilience    | SIGKILL a checkpointed chain mid-chunk, resume, the trace bitwise identical (beyond the reference) |
 
 Every module exposes ``run(**overrides) -> dict`` (summary scalars, the
 keys of its ``pmpx`` counterpart) and takes ``device`` (CUDA unless the
 caller names another); traces are saved via
-``pmpx_torch.metrics.recorder``.  Of ``pmpx``'s experiments only
-``nn_perf`` is not ported yet (ROADMAP §1 item 17).
+``pmpx_torch.metrics.recorder``.  All of ``pmpx``'s experiments are
+ported, in its order.
 """
 
 EXPERIMENTS = [
@@ -39,5 +40,6 @@ EXPERIMENTS = [
     "cifar_hmc",
     "bnn",
     "multichain",
+    "nn_perf",
     "resilience",
 ]

@@ -4,8 +4,9 @@
 Parity with ``complex_nets/Cifar-10/cifar_{SP,MP,PMP}hmc.py``: full-batch
 cross-entropy posterior over LeNet, momentum scale 0.0005, leapfrog step
 0.1, N = 7 (PMP a binary tree of depth 3), loss, train accuracy and test
-accuracy recorded every superstep and saved per run.  ``layout="nhwc"``
-only: the channel-packed LeNet waits for ROADMAP §1 item 17.
+accuracy recorded every superstep and saved per run.  ``layout="packed"``
+runs the channel-packed LeNet (:mod:`pmpx_torch.models.packed`, the same
+parameters; ``remat`` is then the packed convolutions' own, on).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pmpx_torch.config import SamplerSpec
 from pmpx_torch.data import load_cifar10
 from pmpx_torch.experiments.mnist import pretrain
 from pmpx_torch.metrics.recorder import save_trace
-from pmpx_torch.models import LeNet
+from pmpx_torch.models import LeNet, PackedLeNet
 from pmpx_torch.samplers.base import run_chain
 from pmpx_torch.targets.nn import NNPosterior
 
@@ -75,10 +76,6 @@ def run(
     continues from the checkpoint).  Returns ``loss_first``, ``loss_last``,
     ``test_acc_last`` and, with chunks, ``steady_ms_per_superstep`` (the
     median chunk's wall time a superstep, the first chunk left out)."""
-    if layout != "nhwc":
-        raise NotImplementedError(
-            f"layout {layout!r}: the channel-packed LeNet is not ported yet "
-            "(ROADMAP §1 item 17)")
     if algo not in PAPER_CHUNK:
         raise ValueError(f"unknown algo {algo!r}")
     dev = resolve_device(device)
@@ -99,7 +96,8 @@ def run(
         label_noise=label_noise, device=dev,
     )
     target = NNPosterior(
-        LeNet(remat=remat), x_tr, y_tr, seed=seed,
+        PackedLeNet() if layout == "packed" else LeNet(remat=remat),
+        x_tr, y_tr, seed=seed,
         proposal_chunk=proposal_chunk, device=dev,
         compute_dtype=torch.bfloat16 if compute_dtype == "bf16" else None,
     )

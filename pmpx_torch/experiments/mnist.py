@@ -1,23 +1,24 @@
-"""MNIST posterior sampling: {FC, LSTM} x {MH, MP, PMP} (port of
+"""MNIST posterior sampling: {FC, CNN, LSTM} x {MH, MP, PMP} (port of
 ``pmpx/experiments/mnist.py``).
 
-Parity with ``complex_nets/Mnist/{FC,LSTM}/{MH,MP,PMP}_*.py``: full-batch
-cross-entropy posterior, random-walk proposals with alpha=1e-4, z-score
-weight standardisation, single-draw selection, loss/accuracy trace dumps
-with the reference naming convention.  The reference warm-starts from
+Parity with ``complex_nets/Mnist/{FC,CNN,LSTM}/{MH,MP,PMP}_*.py``:
+full-batch cross-entropy posterior, random-walk proposals with
+alpha=1e-4, z-score weight standardisation, single-draw selection,
+loss/accuracy trace dumps with the reference naming convention.  The reference warm-starts from
 SGD-pretrained ``.pkl`` checkpoints; ``pretrain_steps`` of Adam provides
 the equivalent warm start, and ``warm_start`` reads such a checkpoint.
 ``lstm_kernel`` evaluates the LSTM posterior through the CUDA kernel
-``csrc/lstm_fused.cu``, one launch per superstep.
+``csrc/lstm_fused.cu``, one launch per superstep; ``cnn_kernel`` the CNN
+posterior through the space-to-depth path of
+:mod:`pmpx_torch.kernels.cnn_fast` (cuDNN and cuBLAS calls).  The CNN
+runs on the NHWC model unless ``layout="packed"`` (the channel-packed
+executor of :mod:`pmpx_torch.models.packed`).
 
 ``chunk_steps`` runs the chain as checkpointed chunks
 (:func:`pmpx_torch.checkpoint.resume_chain`), the default at
 ``scale="paper"``; ``resume=True`` continues from the checkpoint, or
 adopts a shorter run of the same protocol (``adopt_prefix_run``).  The
 chunked chain is bit-equal to the one-loop chain of the same seed.
-
-Departure from ``pmpx``: the CNN (and its ``layout``/``cnn_kernel``
-options) waits for ROADMAP §1 item 17 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,20 +32,24 @@ from pmpx_torch._device import resolve_device
 from pmpx_torch.config import SamplerSpec
 from pmpx_torch.data import load_mnist
 from pmpx_torch.metrics.recorder import reference_style_name, save_trace
-from pmpx_torch.models import MnistLSTM, MnistMLP
+from pmpx_torch.models import MnistCNN, MnistLSTM, MnistMLP, PackedMnistCNN
 from pmpx_torch.samplers.base import run_chain
 from pmpx_torch.targets.nn import NNPosterior
 
+# the model for a layout: only the CNN has another ("packed"), as in pmpx
 MODELS = {
-    "FC": MnistMLP,
-    "LSTM": MnistLSTM,
+    "FC": lambda layout: MnistMLP(),
+    "CNN": lambda layout: (
+        PackedMnistCNN() if layout == "packed" else MnistCNN()
+    ),
+    "LSTM": lambda layout: MnistLSTM(),
 }
 PAPER_STEPS = {"FC": 500000, "CNN": 250000, "LSTM": 1000000}
 # scale="paper"'s checkpoint interval: a chunk of a few seconds to a
 # minute at the card's full-batch ms per superstep (NVIDIA H100 80GB HBM3,
-# 700 W: FC PMP ~13.5 ms, LSTM PMP through lstm_fused ~8 ms; PERF.md
-# §5-6), so a crash loses at most a minute of work
-PAPER_CHUNK = {"FC": 5000, "LSTM": 5000}
+# 700 W: FC PMP ~13.5 ms, LSTM PMP through lstm_fused ~8 ms, CNN PMP ~200
+# ms; PERF.md §5-6), so a crash loses at most a minute of work
+PAPER_CHUNK = {"FC": 5000, "CNN": 250, "LSTM": 5000}
 
 
 def sampler_spec(algo: str, alpha: float, N: int) -> SamplerSpec:
@@ -157,14 +162,12 @@ def run(
     time a superstep, the first chunk left out).  The trace's JSON
     manifest also holds ``us_per_superstep`` (CUDA events around every
     superstep but the first) when a one-loop chain ran on a card."""
-    if model == "CNN" or layout != "nhwc" or cnn_kernel:
-        raise NotImplementedError(
-            "the MNIST CNN (layout, cnn_kernel) is not ported yet "
-            "(ROADMAP §1 item 17)")
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}")
     if lstm_kernel and model != "LSTM":
         raise ValueError("--lstm-kernel requires --model LSTM")
+    if cnn_kernel and (model != "CNN" or layout != "nhwc"):
+        raise ValueError("--cnn-kernel requires --model CNN (nhwc)")
     dev = resolve_device(device)
     if temper is None:
         # the reference tempers MH at an effective log pi = -1000*CE
@@ -188,7 +191,7 @@ def run(
         label_noise=label_noise, device=dev,
     )
     target = NNPosterior(
-        MODELS[model](), x_tr, y_tr, temper=temper, seed=seed,
+        MODELS[model](layout), x_tr, y_tr, temper=temper, seed=seed,
         proposal_chunk=proposal_chunk, device=dev,
         compute_dtype=torch.bfloat16 if compute_dtype == "bf16" else None,
     )
@@ -210,6 +213,14 @@ def run(
         from pmpx_torch.kernels import lstm_fused
 
         lstm_fused.attach(target)
+
+    if cnn_kernel:
+        # the space-to-depth CNN forward, on the same contract as
+        # lstm_kernel: forward only, attached after pretrain, a protocol
+        # field (another rounding of the densities)
+        from pmpx_torch.kernels import cnn_fast
+
+        cnn_fast.attach(target)
 
     superstep = sampler_spec(algo, alpha, N).build(target)
     # CE loss of the chosen state, from the superstep's own density
@@ -235,6 +246,7 @@ def run(
                 # a kernel run never splices onto a generic-path prefix
                 # (another rounding of the densities)
                 **({"lstm_kernel": True} if lstm_kernel else {}),
+                **({"cnn_kernel": True} if cnn_kernel else {}),
                 "layout": layout,
                 "warm_start": warm_start or None,
                 "pretrain_steps": None if warm_start else int(pretrain_steps),

@@ -7,7 +7,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["BatchNorm", "Conv", "Dense", "batch_norm", "conv_flax", "dense",
-           "max_pool2"]
+           "flax_layout", "max_pool2"]
 
 
 def dense(x: torch.Tensor, kernel: torch.Tensor,
@@ -72,6 +72,19 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
     B, C, H, W = x.shape
     x = x[:, :, : H // 2 * 2, : W // 2 * 2]
     return x.reshape(B, C, H // 2, 2, W // 2, 2).amax(dim=(3, 5))
+
+
+def flax_layout(model: nn.Module) -> list:
+    """(flax path, shape, initialiser) of every leaf of a model built from
+    these layers, in the order of ``ravel_pytree`` over flax's tree: sorted
+    module names, sorted leaf names; kernels lecun-normal, biases zeros,
+    BatchNorm scales ones (flax's defaults)."""
+    out = []
+    for name, mod in sorted(model.named_children()):
+        for leaf, p in sorted(mod.named_parameters()):
+            init = {"bias": "zeros", "scale": "ones"}.get(leaf, "lecun_normal")
+            out.append((f"{name}.{leaf}", tuple(p.shape), init))
+    return out
 
 
 class Conv(nn.Module):

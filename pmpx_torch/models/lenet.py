@@ -29,7 +29,7 @@ from torch import nn
 from torch.func import vjp
 
 from pmpx_torch.models._layers import (
-    BatchNorm, Conv, Dense, batch_norm, conv_flax, max_pool2,
+    BatchNorm, Conv, Dense, batch_norm, conv_flax, flax_layout, max_pool2,
 )
 
 __all__ = ["LeNet"]
@@ -57,6 +57,7 @@ class _RematBlock(torch.autograd.Function):
         ctx.save_for_backward(*inputs)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         with torch.enable_grad():
             _, pull = vjp(_block, *ctx.saved_tensors)
@@ -74,16 +75,7 @@ class LeNet(nn.Module):
         self.Dense_2 = Dense(84, num_classes)
 
     def flax_layout(self) -> list:
-        """(flax path, shape, initialiser) of every leaf in the order of
-        ``ravel_pytree`` over flax's tree: sorted module names, sorted
-        leaf names."""
-        out = []
-        for name, mod in sorted(self.named_children()):
-            for leaf, p in sorted(mod.named_parameters()):
-                init = {"bias": "zeros", "scale": "ones"}.get(
-                    leaf, "lecun_normal")
-                out.append((f"{name}.{leaf}", tuple(p.shape), init))
-        return out
+        return flax_layout(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, 32, 32, 3) NHWC -> NCHW for the convolutions

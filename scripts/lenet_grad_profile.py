@@ -10,8 +10,8 @@ HMC algorithm (the protocol's N = 7, step 0.1, mom_scale 0.0005), each
 with deterministic algorithms on and off, with the peak memory of each;
 then one P = 1 gradient without ``vmap`` (``torch.func.grad_and_value``
 of the same function), and a ``torch.profiler`` table of the CUDA
-kernels of one P = 1 gradient.  One JSON line a measurement.  On a
-machine with a CUDA card, from the root of the repo:
+kernels of one P = 1 gradient (``pmpx_torch.profiling``).  One JSON line
+a measurement.  On a machine with a CUDA card, from the root of the repo:
 
     python scripts/lenet_grad_profile.py
 """
@@ -22,12 +22,14 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from pmpx_torch import profiling  # noqa: E402
 from pmpx_torch.data import load_cifar10  # noqa: E402
 from pmpx_torch.experiments.cifar_hmc import sampler_spec  # noqa: E402
 from pmpx_torch.models import LeNet  # noqa: E402
@@ -107,28 +109,18 @@ def main() -> int:
         emit("grad_and_value without vmap, P=1", False,
              *timed(lambda: gv(theta)))
 
-    from torch.profiler import ProfilerActivity, profile
-
     Theta = theta[None]
-    with torch.no_grad():
+    with torch.no_grad(), tempfile.TemporaryDirectory() as log_dir:
         post.value_and_grad_batch(Theta)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.trace(log_dir):
             post.value_and_grad_batch(Theta)
-            torch.cuda.synchronize()
-    table = []
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0)
-        if t > 0:
-            table.append((t, e.key, e.count))
-    table.sort(reverse=True)
-    total = sum(t for t, _, _ in table)
+        kernels = profiling.device_time_us(log_dir)
+    table = sorted(((t, k) for k, t in kernels.items()), reverse=True)
+    total = sum(kernels.values())
     print(json.dumps({"profile": "value_and_grad_batch P=1",
                       "device_us_total": total,
-                      "top": [{"kernel": k[:90], "us": t, "count": c,
-                               "share": t / total}
-                              for t, k, c in table[:15]],
+                      "top": [{"kernel": k[:90], "us": t, "share": t / total}
+                              for t, k in table[:15]],
                       "device": smi}))
     return 0
 

@@ -357,10 +357,25 @@ def test_mnist_chunk_steps_adopt_and_resume(tmp_path, capsys):
         assert json.load(f)["backend"] == "torch"
 
 
-def test_cifar_refuses_the_packed_layout():
+def test_cifar_packed_layout_resumes_like_one_loop(tmp_path, capsys):
+    """cifar_hmc with layout="packed" (PackedLeNet): 4 SP-HMC steps in one
+    loop, and the same run in chunks of 2 stopped at 2 steps and resumed
+    to 4, the saved traces bit-equal; an unknown algo still raises."""
     from pmpx_torch.experiments import cifar_hmc
 
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cifar_hmc.run(layout="packed", device="cpu")
+    args = ["cifar_hmc", "--layout", "packed", "--algo", "sp_hmc",
+            "--n_train", "24", "--n_test", "8", "--pretrain_steps", "1"]
+    one, cut = str(tmp_path / "one"), str(tmp_path / "cut")
+    _cli(capsys, *args, "--num_steps", "4", "--out_dir", one)
+    _cli(capsys, *args, "--num_steps", "2", "--chunk_steps", "2",
+         "--out_dir", cut)
+    res = _cli(capsys, *args, "--num_steps", "4", "--chunk_steps", "2",
+               "--resume", "true", "--out_dir", cut)
+    assert np.isfinite(res["loss_last"])
+    want = load_trace(os.path.join(one, "cifar_sp_hmc.npz"))
+    got = load_trace(os.path.join(cut, "cifar_sp_hmc.npz"))
+    assert got["loss"].shape[0] == 4 and set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
     with pytest.raises(ValueError):
         cifar_hmc.run(algo="mh", device="cpu")

@@ -134,8 +134,8 @@ def test_cli_list_and_run(tmp_path, capsys):
     assert EXPERIMENTS == [
         "error_boxplot", "banana", "lb_grid", "convergence", "cores_sweep",
         "ess_msjd", "time_analysis", "skewness", "correlation", "mnist",
-        "cifar_hmc", "bnn", "multichain",
-        "resilience"]  # pmpx's order, nn_perf (not ported yet) left out
+        "cifar_hmc", "bnn", "multichain", "nn_perf",
+        "resilience"]  # pmpx's order, all 15
     assert cli.main(["list"]) == 0
     listed = capsys.readouterr().out.split()
     assert "time_analysis" in listed and "cores_sweep" in listed

@@ -710,3 +710,64 @@ def test_lenet_posterior_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(gv.cpu(), cv, rtol=1e-5, atol=0)
     torch.testing.assert_close(gg.cpu(), cg, rtol=0,
                                atol=1e-4 * float(cg.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_cnn_fast_on_the_card_matches_generic(cuda, compute_dtype):
+    """The space-to-depth CNN density (cuDNN and cuBLAS, TF32 off) against
+    the generic path on the card and, in f32, the CPU's, P = 8 over 512
+    images: rtol and atol 2e-5 in f32, 2e-2 in bf16 (pmpx's
+    tests/test_cnn_fast.py:36-51)."""
+    from pmpx_torch.kernels import cnn_fast
+    from pmpx_torch.models import MnistCNN
+    from pmpx_torch.targets.nn import NNPosterior
+
+    g = torch.Generator().manual_seed(1)
+    X = torch.randn(512, 28, 28, generator=g)
+    Y = torch.randint(0, 10, (512,), generator=g)
+    gpu = NNPosterior(MnistCNN(), X, Y, temper=10.0, device=cuda,
+                      compute_dtype=compute_dtype)
+    Theta = gpu.init_theta().cpu() + 0.3 * torch.randn(8, gpu.d, generator=g)
+    tol = 2e-5 if compute_dtype is None else 2e-2
+    with torch.no_grad():
+        generic = gpu.log_prob_batch(Theta.to(cuda))
+        fast = cnn_fast.make_fast_log_prob_batch(gpu)(Theta.to(cuda))
+        gpu.proposal_chunk = 2
+        chunked = cnn_fast.make_fast_log_prob_batch(gpu)(Theta.to(cuda))
+    torch.testing.assert_close(fast, generic, rtol=tol, atol=tol)
+    # another chunk is another convolution shape (cuDNN may pick another
+    # algorithm), so the chunked densities agree to the same tolerance
+    torch.testing.assert_close(chunked, fast, rtol=tol, atol=tol)
+    if compute_dtype is None:
+        cpu = NNPosterior(MnistCNN(), X, Y, temper=10.0, device="cpu")
+        with torch.no_grad():
+            want = cnn_fast.make_fast_log_prob_batch(cpu)(Theta)
+        torch.testing.assert_close(fast.cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [True, False])
+@pytest.mark.parametrize("model", ["lenet", "cnn"])
+def test_packed_on_the_card_matches_generic(cuda, model, remat):
+    """The channel-packed LeNet and MnistCNN against the NHWC models on
+    the card, value and gradient at P = 2 over 256 images: values rtol
+    1e-5, gradients within 1e-4 max|g|."""
+    from pmpx_torch.models import LeNet, MnistCNN, PackedLeNet, PackedMnistCNN
+    from pmpx_torch.targets.nn import NNPosterior
+
+    nhwc_cls, packed_cls, shape = {
+        "lenet": (LeNet, PackedLeNet, (32, 32, 3)),
+        "cnn": (MnistCNN, PackedMnistCNN, (28, 28))}[model]
+    g = torch.Generator().manual_seed(2)
+    X = torch.randn(256, *shape, generator=g)
+    Y = torch.randint(0, 10, (256,), generator=g)
+    nhwc = NNPosterior(nhwc_cls(), X, Y, device=cuda)
+    packed = NNPosterior(packed_cls(remat=remat), X, Y, device=cuda)
+    Theta = nhwc.init_theta() + 0.05 * torch.randn(
+        2, nhwc.d, generator=g).to(cuda)
+    nv, ng = nhwc.value_and_grad_batch(Theta)
+    pv, pg = packed.value_and_grad_batch(Theta)
+    torch.testing.assert_close(pv, nv, rtol=1e-5, atol=0)
+    torch.testing.assert_close(pg, ng, rtol=0,
+                               atol=1e-4 * float(ng.abs().max()))

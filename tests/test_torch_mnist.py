@@ -322,16 +322,30 @@ def test_mnist_run_pretrain_path_and_cli(tmp_path, monkeypatch, capsys):
     assert all(np.isfinite(v) for v in res.values())
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(model="CNN"), "item 17"),
-    (dict(layout="packed"), "item 17"),
-    (dict(cnn_kernel=True), "item 17"),
-    (dict(model="CNN", chunk_steps=10), "item 17"),
-    (dict(layout="packed", resume=True), "item 17"),
+@pytest.mark.parametrize("kw", [
+    dict(model="CNN"),
+    dict(layout="packed"),
+    dict(cnn_kernel=True),
+    dict(model="CNN", chunk_steps=2),
+    dict(layout="packed", resume=True, chunk_steps=2),
 ])
-def test_mnist_run_not_ported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tmnist.run(device="cpu", **kw)
+def test_mnist_run_cnn_options_as_pmpx(tmp_path, monkeypatch, kw):
+    """The CNN's options run where pmpx runs them (FC ignores ``layout``,
+    as pmpx's MODELS do) and raise pmpx's error where pmpx raises
+    (``cnn_kernel`` on FC, the default model)."""
+    monkeypatch.setenv("PMPX_DATA_DIR", str(tmp_path))
+    common = dict(n_train=16, n_test=8, num_steps=4, pretrain_steps=1, **kw)
+    if kw.get("cnn_kernel"):
+        with pytest.raises(ValueError) as want:
+            jmnist.run(out_dir=str(tmp_path / "j"), **common)
+        with pytest.raises(ValueError, match="requires --model CNN") as got:
+            tmnist.run(out_dir=str(tmp_path / "t"), device="cpu", **common)
+        assert str(got.value) == str(want.value)
+        return
+    got = tmnist.run(out_dir=str(tmp_path / "t"), device="cpu", **common)
+    assert np.isfinite(got["loss_last"])
+    if kw.get("chunk_steps"):
+        assert got["steady_ms_per_superstep"] > 0
 
 
 def test_mnist_run_rejects_lstm_kernel_on_fc():
