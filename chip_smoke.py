@@ -94,7 +94,20 @@ Phases, each printing its wall time:
    ``nn_perf``'s CNN cells at full batch, ``footprint`` at P = 2 (every
    variant a peak), ``bf16_delta`` on the CNN cells, and a
    ``pmpx_torch.profiling`` trace of CNN supersteps naming its conv and
-   GEMM kernels; 13d. ``python -m pmpx_torch.cli doctor`` names the card.
+   GEMM kernels; 13d. ``python -m pmpx_torch.cli doctor`` names the card;
+14. the mesh (``pmpx_torch.parallel``) on the benchmark cell (n = 100,000,
+   binary P = 1024): 14a. a one-rank NCCL mesh in this process,
+   ``run_chains_sharded`` of 8 chains, ``ShardedLinReg`` over the whole
+   data, the tree superstep and the meshed farm (8 chains of binary P =
+   512) each bit-equal to its unsharded counterpart; 14b. four gloo ranks
+   that share the card (child processes, joined with a timeout): data = 4
+   and tree = 4 against the sweep and the plain superstep, chains = 4 x 2
+   chains bit-equal to each block run alone, the farm over 4 ranks
+   bit-equal to 14a's, and (chains 2 x data 2) 1000 supersteps held to
+   least squares; each rank prints its device, launches and collective
+   routes (gloo copies a CUDA tensor through the host), and the launches
+   join the ``kernels`` line.  No scaling figure: four processes share
+   one card.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -108,6 +121,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -159,10 +173,15 @@ NEW_MODES = ((3, 1), (199, 1), (1023, 1), (3, 2), (7, 3), (31, 2), (3, 4),
 # at n = 100,000; phase 11's at n = 100,000: MH's 2 states (convergence,
 # lb_grid), lb_grid's 7 x 2 tree and multichain's 8 chains of 8 (64), and
 # skewness' 64 chains of 8 (512); phase 12's: the HMC density calls' 1, 2
-# and 4 states (padded to 8) and resilience's depth-5 tree (32)
+# and 4 states (padded to 8) and resilience's depth-5 tree (32); phase
+# 14's: 8 chains of 1024 in one batch, a chains rank's 2 chains (2048), a
+# data rank's 25,000 (data = 4) and 50,000 points (chains 2 x data 2), a
+# tree rank's 256 nodes (tree = 4)
 RSS_SHAPES = ((1024, 100_000), (1024, 500), (4, 100_000), (4, 500),
               (200, 100_000), (8, 5000), (512, 100_000), (8, 100_000),
-              (2, 100_000), (64, 100_000), (1, 100_000), (32, 100_000))
+              (2, 100_000), (64, 100_000), (1, 100_000), (32, 100_000),
+              (8192, 100_000), (2048, 100_000), (1024, 25_000),
+              (1024, 50_000), (256, 100_000))
 # and the edges of its launch geometry: cluster sizes 1 to 8, P above one
 # wave's width, n with and without a tail of < 4 points
 RSS_EDGE_P = (8, 16, 64, 128, 576, 1024, 1088, 2048)
@@ -303,6 +322,25 @@ CNN_FAST_RTOL = 2e-5
 PACKED_VAL_RTOL, PACKED_GRAD_TOL = 1e-5, 1e-4
 PACKED_STEPS, PACKED_CHUNK, PACKED_PRETRAIN = 4, 2, 10
 NNPERF_ITERS, FOOTPRINT_P, BF16_ITERS, TRACE_STEPS = 3, 2, 8, 2
+
+# phase 14: the mesh on the benchmark cell (n = 100,000, temper 1e-3, step
+# 0.02, all_first, binary depth 10, P = 1024).  14a, a one-rank NCCL mesh
+# in this process: P14_CHAINS chains of P14_STEPS supersteps sharded
+# against the chain batch, the farm (P14_CHAINS chains of binary P = 512,
+# the farm row's shape, one FARM_STEPS-superstep launch) meshed against
+# unmeshed, all bit for bit.  14b, P14_WORLD gloo ranks sharing the card,
+# each joined within P14_JOIN_S: data = 4 within rtol P14_RTOL of the
+# unsharded sweep (only the f32 summation order differs: another launch
+# geometry of linreg_rss), tree = 4's log weights within P14_RTOL of the
+# plain superstep's relative to max|log-density| (they are differences of
+# the log-densities) and its next state within P14_RTOL, chains = 4 x 2
+# chains bit-equal to each block run alone, and
+# (chains 2 x data 2) P14_DATA_STEPS supersteps, posterior means within 4
+# sd of least squares after P14_DATA_BURN
+P14_CHAINS, P14_STEPS = 8, 30
+P14_WORLD, P14_JOIN_S = 4, 300
+P14_RTOL = 1e-5
+P14_DATA_STEPS, P14_DATA_BURN = 1000, 300
 
 # phase 6's P sweeps on the benchmark cell's data: one SWEEP_STEPS-superstep
 # launch per (N, depth), each timed over SWEEP_REPS, emit="all" up to its
@@ -1211,6 +1249,304 @@ def phase13(dev, name: str, smi: str) -> dict:
             "(pmpx's 32)",
         ], "nondeterministic_ops": sorted(flagged), "launches": p13}))
     return p13
+
+
+def phase14_inputs(dev, bench) -> dict:
+    """Phase 14's target and inputs, made alike in every process from
+    fixed seeds on the card: the benchmark cell's target and sampler,
+    P14_CHAINS starting states, P proposals, one superstep's innovations
+    and uniforms, and the farm row's binary P = 512 sampler."""
+    from pmpx_torch.samplers import pmp
+
+    cfg = bench.bench_config()
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    th = bench.theta0(dev)
+    return {
+        "target": bench.bench_target(dev),
+        "cfg": cfg,
+        "theta0": th + 0.05 * torch.randn((P14_CHAINS, 3), generator=g,
+                                          device=dev),
+        "Theta": th + 0.05 * torch.randn((cfg.P, 3), generator=g,
+                                         device=dev),
+        "eps": cfg.step_size * torch.randn((cfg.P, 3), generator=g,
+                                           device=dev),
+        "u": torch.rand((cfg.P,), generator=g, device=dev),
+        "farm_cfg": pmp.PMPConfig(N=1, depth=9, step_size=cfg.step_size,
+                                  selection="all_first"),
+    }
+
+
+def _roots(th, o):
+    return th, o["root_index"]
+
+
+def phase14_rank(rank, world, init_file, out_dir) -> None:
+    """One rank of phase 14b, in a process of its own: a gloo world of
+    ``world`` ranks (``file://`` init) that share the card.  Runs the data
+    (data = world), tree (tree = world), chains (chains = world: the
+    chain-batched superstep and the farm) and (chains 2 x data 2) meshes
+    in that order, every rank alike; saves what it got to
+    ``out_dir/rank{rank}.pt`` and prints its device, launches, collective
+    routes and walls as one JSON line."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pmpx_torch import bench
+    from pmpx_torch import parallel as par
+    from pmpx_torch.kernels import launches, reset_launches
+    from pmpx_torch.parallel import mesh as pm
+    from pmpx_torch.samplers import pmp
+
+    rank, world = int(rank), int(world)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=P14_JOIN_S))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    counts, walls = {}, {}
+
+    def counted(label, fn):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        for k, v in launches.items():
+            if v:
+                counts[k] = counts.get(k, 0) + v
+        return out
+
+    inp = phase14_inputs(dev, bench)
+    target, cfg = inp["target"], inp["cfg"]
+    n = target.n
+    res = {}
+
+    dmesh = pm.make_mesh(data=world)
+    d, m = dmesh.get_local_rank(pm.AXIS_DATA), n // world
+    sh = par.ShardedLinReg(target.x[d * m:(d + 1) * m],
+                           target.y[d * m:(d + 1) * m], n,
+                           temper=target.temper, mesh=dmesh)
+    res["data_logp"] = counted(
+        "data", lambda: sh.log_prob_batch(inp["Theta"])).cpu()
+
+    tsup = par.make_tree_sharded_superstep(target, cfg,
+                                           mesh=pm.make_mesh(tree=world))
+    th, o = counted("tree", lambda: tsup(None, bench.theta0(dev),
+                                         eps=inp["eps"], u=inp["u"]))
+    res["tree"] = {"theta": th.cpu(), "log_accept": o["log_accept"].cpu()}
+
+    cmesh = pm.make_mesh(chains=world)
+    sup = pmp.make_superstep(target, cfg)
+    _, recs = counted("chains", lambda: par.run_chains_sharded(
+        sup, 14, inp["theta0"], P14_STEPS, cmesh, _roots, device=dev))
+    res["chains"] = tuple(r.cpu() for r in recs)
+    farm = par.make_chain_farm_fused(target, inp["farm_cfg"], FARM_STEPS,
+                                     cmesh, chunk=FARM_STEPS)
+    res["farm"] = counted("farm", lambda: farm(
+        par.chain_generators(14, P14_CHAINS, dev), inp["theta0"])).cpu()
+
+    m22 = pm.make_mesh(chains=2, data=2)
+
+    def make_local(x_l, y_l):
+        return pmp.make_superstep(par.ShardedLinReg(
+            x_l, y_l, n, temper=target.temper, mesh=m22), cfg)
+
+    th2 = bench.theta0(dev).repeat(2, 1)
+    _, trace = counted("chains2_data2", lambda: par.run_chains_data_sharded(
+        make_local, target.x, target.y, 15, th2, P14_DATA_STEPS, m22,
+        collect=lambda t, o: t, device=dev))
+    res["data_chains"] = trace.cpu()
+    line = {"rank": rank, "current_device": torch.cuda.current_device(),
+            "device": torch.cuda.get_device_name(dev), "launches": counts,
+            "routes": pm.routes, "wall_s": walls}
+    res["line"] = line
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    print(json.dumps(line), flush=True)
+    dist.destroy_process_group()
+
+
+def phase14(dev, name: str, smi: str, bench) -> dict:
+    """Phase 14's runs and gates: 14a in this process on a one-rank NCCL
+    mesh, 14b in P14_WORLD gloo ranks sharing the card; returns the
+    sharded runs' launches by kernel (14a's and every rank's)."""
+    import torch.distributed as dist
+
+    from pmpx_torch import parallel as par
+    from pmpx_torch.kernels import fused_chain as fc
+    from pmpx_torch.kernels import launches, reset_launches
+    from pmpx_torch.parallel import mesh as pm
+    from pmpx_torch.samplers import pmp
+
+    p14 = {}
+
+    def counted(fn):
+        """fn() with the launches counted from 0 and added to the
+        phase's; returns (fn's result, its counts)."""
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launches.items() if v}
+        for k, v in counts.items():
+            p14[k] = p14.get(k, 0) + v
+        return out, counts
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(map(same, a, b))
+        return torch.equal(a, b)
+
+    inp = phase14_inputs(dev, bench)
+    target, cfg, th8 = inp["target"], inp["cfg"], inp["theta0"]
+    th0 = bench.theta0(dev)
+    sup = pmp.make_superstep(target, cfg)
+
+    # 14a: a one-rank NCCL mesh, each sharded path bit-equal to its
+    # unsharded counterpart
+    t0 = time.perf_counter()
+    routes0 = {k: dict(v) for k, v in pm.routes.items()}
+    mesh = pm.make_mesh(devices=dev)
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            "14a: a world of one rank on NCCL")
+    got, counts = counted(lambda: par.run_chains_sharded(
+        sup, 14, th8, P14_STEPS, mesh, _roots, device=dev))
+    require(counts == {"linreg_rss": P14_STEPS},
+            f"14a: one linreg_rss launch a superstep for the "
+            f"{P14_CHAINS} chains: {counts}")
+    want = par.run_chains_vmapped(sup, par.chain_generators(14, 1, dev)[0],
+                                  th8, P14_STEPS, _roots)
+    require(same(got, want), "14a: run_chains_sharded == "
+            "run_chains_vmapped from the same seed, bit for bit")
+    sh = par.ShardedLinReg(target.x, target.y, target.n,
+                           temper=target.temper, mesh=mesh)
+    got, counts = counted(lambda: sh.log_prob_batch(inp["Theta"]))
+    require(counts == {"linreg_rss": 1}, f"14a: ShardedLinReg, one "
+            f"launch: {counts}")
+    require(torch.equal(got, target.log_prob_batch(inp["Theta"])),
+            f"14a: ShardedLinReg == BayesLinReg(method='sweep') at P = "
+            f"{cfg.P}, bit for bit")
+    tsup = par.make_tree_sharded_superstep(target, cfg, mesh=mesh)
+    got, counts = counted(lambda: tsup(None, th0, eps=inp["eps"],
+                                       u=inp["u"]))
+    require(counts == {"linreg_rss": 1}, f"14a: the tree superstep, one "
+            f"launch: {counts}")
+    plain = sup(None, th0, eps=inp["eps"], u=inp["u"])
+    require(same(got, plain), "14a: the tree superstep (T = 1) == the "
+            "plain superstep on injected noise, bit for bit")
+    farm_cfg = inp["farm_cfg"]
+    farm = par.make_chain_farm_fused(target, farm_cfg, FARM_STEPS, mesh,
+                                     chunk=FARM_STEPS)
+    got, counts = counted(lambda: farm(
+        par.chain_generators(14, P14_CHAINS, dev), th8))
+    require(counts == {fc.FARM_KERNEL: 1}, f"14a: the meshed farm in one "
+            f"launch: {counts}")
+    unmeshed = par.make_chain_farm_fused(target, farm_cfg, FARM_STEPS,
+                                         chunk=FARM_STEPS)(
+        par.chain_generators(14, P14_CHAINS, dev), th8)
+    require(torch.equal(got, unmeshed), f"14a: the meshed farm == the farm "
+            f"(C = {P14_CHAINS}, binary P = {farm_cfg.P}), bit for bit")
+    print(json.dumps({"phase14a": {
+        "world": dist.get_world_size(), "backend": dist.get_backend(),
+        "bit_equal": ["run_chains_sharded", "ShardedLinReg",
+                      "tree superstep", "meshed farm"],
+        "launches": dict(p14), "routes": {
+            k: {r: n - routes0[k][r] for r, n in v.items()}
+            for k, v in pm.routes.items()},
+        "wall_s": time.perf_counter() - t0}}))
+    dist.destroy_process_group()
+
+    # 14b: P14_WORLD gloo ranks sharing the card
+    t0 = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for r in range(P14_WORLD):
+            with open(f"{tmp}/rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke as c; "
+                     "c.phase14_rank(*sys.argv[1:])", str(r),
+                     str(P14_WORLD), f"{tmp}/init", tmp],
+                    cwd=here, stdout=log, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, OMP_NUM_THREADS="2")))
+        deadline = time.monotonic() + P14_JOIN_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for r in range(P14_WORLD):
+            print(f"-- rank {r} (exit {procs[r].returncode}):")
+            print(Path(f"{tmp}/rank{r}.log").read_text().rstrip())
+        require(all(p.returncode == 0 for p in procs),
+                f"14b: every rank ended with exit 0 within {P14_JOIN_S} s")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(P14_WORLD)]
+    wall = time.perf_counter() - t0
+
+    want = target.log_prob_batch(inp["Theta"]).cpu()
+    logpi_scale = target.log_prob_batch(pmp.tree_positions(
+        th0, inp["eps"], cfg.topology())).abs().max().item()
+    plain = tuple(a.cpu() if torch.is_tensor(a) else
+                  {k: v.cpu() for k, v in a.items()} for a in plain)
+    gens = par.chain_generators(14, P14_WORLD, dev)
+    b = P14_CHAINS // P14_WORLD
+    blocks = [par.run_chains_vmapped(sup, gens[r], th8[r * b:(r + 1) * b],
+                                     P14_STEPS, _roots)[1]
+              for r in range(P14_WORLD)]
+    errs = {"data_rel": 0.0, "tree_log_accept": 0.0, "tree_theta": 0.0}
+    rss_each = 1 + 1 + P14_STEPS + P14_DATA_STEPS
+    for r, res in enumerate(ranks):
+        line = res["line"]
+        require(line["launches"] == {"linreg_rss": rss_each,
+                                     fc.FARM_KERNEL: 1},
+                f"14b rank {r}: linreg_rss once a density call "
+                f"({rss_each}) and one farm launch: {line['launches']}")
+        for k, v in line["launches"].items():
+            p14[k] = p14.get(k, 0) + v
+        rel = ((res["data_logp"] - want).abs() / want.abs()).max().item()
+        errs["data_rel"] = max(errs["data_rel"], rel)
+        require(rel <= P14_RTOL, f"14b rank {r}: data = {P14_WORLD} "
+                f"within rtol {P14_RTOL} of the sweep ({rel:.3g})")
+        # the log weights are differences of the log-densities, so their
+        # f32 error is a share of the densities' scale, max|logpi|; the
+        # next state is the same node's position
+        for k, a, w, scale in (
+                ("tree_log_accept", res["tree"]["log_accept"],
+                 plain[1]["log_accept"], logpi_scale),
+                ("tree_theta", res["tree"]["theta"], plain[0], 1.0)):
+            err = (a - w).abs().max().item() / scale
+            errs[k] = max(errs[k], err)
+            require(err <= P14_RTOL, f"14b rank {r}: tree = {P14_WORLD} "
+                    f"{k} within {P14_RTOL} of the plain superstep's "
+                    f"(relative to {scale:.6g}: {err:.3g})")
+        for c in range(P14_WORLD):
+            got = tuple(a[c * b:(c + 1) * b] for a in res["chains"])
+            require(same(got, tuple(a.cpu() for a in blocks[c])),
+                    f"14b rank {r}: chains block {c} == that block run "
+                    f"alone from the same seed, bit for bit")
+        require(torch.equal(res["farm"], unmeshed.cpu()),
+                f"14b rank {r}: the farm over {P14_WORLD} chains-ranks == "
+                f"the farm in one process, bit for bit")
+        require(torch.equal(res["data_chains"], ranks[0]["data_chains"]),
+                f"14b rank {r}: the (chains 2 x data 2) records agree")
+    for c in range(2):
+        posterior_check(f"14b (chains 2 x data 2) chain {c}",
+                        ranks[0]["data_chains"][c], P14_DATA_BURN, target,
+                        bench)
+    print(json.dumps({"phase14b": {
+        "world": P14_WORLD, "backend": "gloo", "device": name,
+        "power": smi, "errors": errs, "wall_s": wall,
+        "note": (f"{P14_WORLD} processes sharing one card: these walls "
+                 "are that cost, not a scaling figure"),
+        "ranks": [res["line"] for res in ranks]}}))
+    return p14
 
 
 def main() -> int:
@@ -2256,6 +2592,12 @@ def main() -> int:
         for k in kernels:
             if k["name"] in p13:
                 k["launches"] += p13[k["name"]]
+
+    with Phase("14 the mesh: chains, data and tree axes"):
+        p14 = phase14(dev, name, smi, bench)
+        for k in kernels:
+            if k["name"] in p14:
+                k["launches"] += p14[k["name"]]
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

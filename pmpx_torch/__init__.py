@@ -17,6 +17,10 @@ from pmpx_torch import tree
 from pmpx_torch.transition import GaussianRW
 from pmpx_torch.samplers.base import Target, Tempered, batch_log_prob, run_chain
 from pmpx_torch.samplers.pmp import PMPConfig
+from pmpx_torch.samplers.mp import MPConfig
+from pmpx_torch.samplers.mh import MHConfig
+from pmpx_torch.samplers.hmc import HMCConfig, MPHMCConfig, PMPHMCConfig
+from pmpx_torch.config import RunSpec, SamplerSpec, load_spec
 
 # Arithmetic that feeds densities runs in full f32: no TF32 in matmuls or
 # convolutions (the rule of pmpx/kernels/fused_chain.py's HIGHEST-precision
@@ -34,4 +38,12 @@ __all__ = [
     "batch_log_prob",
     "run_chain",
     "PMPConfig",
+    "MPConfig",
+    "MHConfig",
+    "HMCConfig",
+    "MPHMCConfig",
+    "PMPHMCConfig",
+    "RunSpec",
+    "SamplerSpec",
+    "load_spec",
 ]

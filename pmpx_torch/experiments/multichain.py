@@ -3,15 +3,19 @@
 
 Beyond the reference (which runs independent chains only as hand-pinned
 processes with no cross-chain diagnostics, SURVEY.md §2.5): C chains run
-as one batch on one card, and split-R-hat / per-chain ESS quantify
-convergence.  ``pmpx`` runs them vmapped or ``shard_map``'d over a
-``chains`` mesh axis; the port has no mesh yet (ROADMAP §1 item 20), so
-``sharded=True`` and ``path="sharded"`` run the chain-batched superstep
-(:func:`pmpx_torch.parallel.run_chains_vmapped`) on one card, and
-``path="fused"`` the fused chain farm (one kernel launch of all C chains
-a chunk).  The overdispersed starting states come from
+as one batch (:func:`pmpx_torch.parallel.run_chains_vmapped`) or over the
+``chains`` axis of a mesh of ranks (:func:`pmpx_torch.parallel.
+run_chains_sharded`, each rank a block of chains as one batch), and
+split-R-hat / per-chain ESS quantify convergence.  ``sharded=True`` runs
+the chains over ``make_mesh(chains=n_chains)``; :func:`sweep`'s
+``path="sharded"`` and ``path="fused"`` (the fused chain farm, one kernel
+launch of a rank's chains a chunk) over a chains axis as wide as the
+largest divisor of ``n_chains`` that the world holds (one rank in a
+process with no world).  The overdispersed starting states come from
 ``numpy.random.default_rng(seed)``, as in ``pmpx``, so both packages start
-from the same states.
+from the same states.  In a world of several ranks, global rank 0 writes
+the files and every rank of the mesh returns the summary; a rank outside
+the mesh returns ``None``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pmpx_torch._device import resolve_device
 from pmpx_torch.config import SamplerSpec
@@ -30,7 +35,8 @@ from pmpx_torch.kernels import fused_chain as fc
 from pmpx_torch.metrics import ess, ess_chunked, split_rhat
 from pmpx_torch.metrics.recorder import save_trace
 from pmpx_torch.parallel import (
-    chain_generators, make_chain_farm_fused, run_chains_vmapped,
+    chain_generators, make_chain_farm_fused, make_mesh, run_chains_sharded,
+    run_chains_vmapped,
 )
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
 
@@ -45,6 +51,12 @@ def chain_target(n_data: int, seed: int = 0, method: str = "auto",
     x, y = make_synthetic_linreg(seeded(seed, dev), n_data)
     return BayesLinReg(x, y, temper=50.0 / n_data, method=method,
                        device=dev)
+
+
+def _writes() -> bool:
+    """Whether this process writes the files: global rank 0, or a process
+    with no world."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def overdispersed(seed: int, n_chains: int, device=None) -> torch.Tensor:
@@ -81,8 +93,9 @@ def run(
     """``mode="single"``: C chains of one sampler, with split-R-hat, mean
     per-chain ESS and pooled means of the tail half.  ``mode="sweep"``:
     :func:`sweep`'s table over ``ps`` x ``algos`` on ``path``.
-    ``sharded`` is accepted for ``pmpx``'s signature and has no effect:
-    on one card the chains always run as one batch."""
+    ``sharded=True`` runs the chains over ``make_mesh(chains=n_chains)``
+    (its ValueError where the world has fewer ranks), one chain a rank,
+    each from a generator seeded from (seed + 1, its chains coordinate)."""
     dev = resolve_device(device)
     if mode == "sweep":
         # chain-farm ESS/R-hat table (``--mode sweep``); comma-separated
@@ -110,11 +123,16 @@ def run(
     )
     superstep = spec.build(target)
     theta0 = overdispersed(seed, n_chains, dev)
-    # one card: sharded or not, the chains run as one batch
-    _, roots = run_chains_vmapped(
-        superstep, seeded(seed + 1, dev), theta0, num_steps,
-        collect=lambda th, o: th,
-    )
+    collect = lambda th, o: th  # noqa: E731
+    if sharded:
+        mesh = make_mesh(chains=n_chains, devices=dev)
+        if mesh is None:
+            return None
+        _, roots = run_chains_sharded(superstep, seed + 1, theta0,
+                                      num_steps, mesh, collect, device=dev)
+    else:
+        _, roots = run_chains_vmapped(superstep, seeded(seed + 1, dev),
+                                      theta0, num_steps, collect=collect)
     half = num_steps // 2
     tail = roots[:, half:, :]
 
@@ -124,7 +142,9 @@ def run(
         out[f"rhat_{name}"] = float(split_rhat(vals))
         out[f"ess_{name}"] = float(np.mean([float(ess(v)) for v in vals]))
         out[f"mean_{name}"] = float(vals.double().mean())
-    save_trace(out_dir, "multichain", {"roots": roots.cpu().numpy()}, out)
+    if _writes():
+        save_trace(out_dir, "multichain", {"roots": roots.cpu().numpy()},
+                   out)
     return out
 
 
@@ -148,9 +168,12 @@ def sweep(
     P (P + 1 states) for ``mp`` (reference ``ess_per_s_MP.cu``), a binary
     depth-log2(P) tree for ``pmp`` (``ess_per_s_PMP.cu``).  ``path=
     "fused"`` farms the fused chain kernel (sufficient-statistics
-    likelihood, ``chunk`` supersteps a launch, all chains in each launch);
-    ``"sharded"`` runs the chain-batched superstep on one card.  Each
-    cell's runner is built once; a warm-up call of the same length comes
+    likelihood, ``chunk`` supersteps a launch, a rank's chains in each
+    launch); ``"sharded"`` runs the chain-batched superstep of
+    :func:`run_chains_sharded`.  Both run over a chains axis as wide as
+    ``pmpx``'s cap: the largest divisor of ``n_chains`` no larger than the
+    world (a rank past it returns ``None``).  Each cell's runner is built
+    once; a warm-up call of the same length comes
     before the timed call, each clock read after a device sync.  Wall time
     is the timed call's; aggregate ESS/s sums the per-chain tail ESS of
     every coordinate stream across chains, and split-R-hat certifies that
@@ -159,6 +182,12 @@ def sweep(
     if path not in ("fused", "sharded"):
         raise ValueError(f"path is 'fused' or 'sharded', got {path!r}")
     dev = resolve_device(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    cap = max(s for s in range(1, min(n_chains, world) + 1)
+              if n_chains % s == 0)
+    mesh = make_mesh(chains=cap, devices=dev)
+    if mesh is None:
+        return None
     target = chain_target(n_data, seed, device=dev)
     theta0 = overdispersed(seed, n_chains, dev)
     collect = lambda th, o: th  # noqa: E731
@@ -181,7 +210,7 @@ def sweep(
                 )
             if path == "fused":
                 run_farm = make_chain_farm_fused(
-                    target, fc.spec_to_cfg(spec), num_steps,
+                    target, fc.spec_to_cfg(spec), num_steps, mesh,
                     chunk=min(chunk, num_steps),
                 )
 
@@ -191,8 +220,8 @@ def sweep(
                 superstep = spec.build(target)
 
                 def farm(s, sup=superstep):
-                    return run_chains_vmapped(sup, seeded(s, dev), theta0,
-                                              num_steps, collect=collect)[1]
+                    return run_chains_sharded(sup, s, theta0, num_steps,
+                                              mesh, collect, device=dev)[1]
             farm(seed + 1)  # warm-up
             sync(dev)
             t0 = time.perf_counter()
@@ -222,18 +251,20 @@ def sweep(
                 row[f"ess_{name}"] = float(np.sum(ch_ess))
             row["agg_ess_per_s"] = total_ess / wall
             rows.append(row)
-            print(
-                f"[multichain.sweep] {algo} P={P}: "
-                f"agg_ess_per_s={row['agg_ess_per_s']:.1f} "
-                f"rhat_beta1={row['rhat_beta1']:.4f} wall={wall:.2f}s",
-                flush=True,
-            )
-    os.makedirs(out_dir, exist_ok=True)
-    how = ("the fused chain farm, one launch of all chains a chunk"
+            if _writes():
+                print(
+                    f"[multichain.sweep] {algo} P={P}: "
+                    f"agg_ess_per_s={row['agg_ess_per_s']:.1f} "
+                    f"rhat_beta1={row['rhat_beta1']:.4f} wall={wall:.2f}s",
+                    flush=True,
+                )
+    how = ("the fused chain farm, one launch of a rank's chains a chunk"
            if path == "fused" else "chain-batched")
+    where = ("on one card" if cap == 1
+             else f"over {cap} ranks of the chains axis")
     summary = {
         "protocol": (
-            f"{n_chains} chains on one card ({device_name(dev)}), {how}, "
+            f"{n_chains} chains {where} ({device_name(dev)}), {how}, "
             f"synthetic linreg n={n_data}, {num_steps} supersteps, "
             "tail-half metrics"
         ),
@@ -243,6 +274,8 @@ def sweep(
     name = out_name or (
         "chain_farm_fused.json" if path == "fused" else "chain_farm.json"
     )
-    with open(os.path.join(out_dir, name), "w") as f:
-        json.dump(summary, f, indent=1)
+    if _writes():
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, name), "w") as f:
+            json.dump(summary, f, indent=1)
     return summary

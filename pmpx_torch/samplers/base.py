@@ -91,18 +91,29 @@ def _stack(recs: list):
     return torch.stack(recs)
 
 
+def _print_step(step: int, state, out) -> None:
+    print(f"[pmpx_torch] step {step}")
+
+
 def run_chain(
     superstep: Callable[[torch.Generator, Any], tuple],
     generator: torch.Generator,
     state0: Any,
     num_steps: int,
     collect: Optional[Callable[[Any, Any], Any]] = None,
+    log_every: Optional[int] = None,
+    log_fn: Optional[Callable[[int, Any, Any], None]] = None,
 ):
     """Run ``num_steps`` supersteps; returns ``(final_state, records)``.
 
     ``superstep(generator, state) -> (state', out)``; ``collect(state',
     out)`` chooses what to record per step (defaults to ``out``).  Records
     are stacked along a new leading axis, through dicts and tuples.
+
+    ``log_every``/``log_fn``: opt-in host observability, off by default.
+    With ``log_every`` set, ``log_fn(step, state', out)`` runs on the host
+    after every step with ``step % log_every == 0`` (the default prints
+    the step); whatever it reads from the device syncs the loop there.
 
     Design.  ``pmpx`` scans the superstep under one ``jit``, splitting one
     PRNG key per step.  Here the loop is Python, and it stays on the
@@ -126,7 +137,9 @@ def run_chain(
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
     state = state0
     recs = []
-    for _ in range(num_steps):
+    for step in range(num_steps):
         state, out = superstep(generator, state)
+        if log_every and step % log_every == 0:
+            (log_fn or _print_step)(step, state, out)
         recs.append(collect(state, out) if collect is not None else out)
     return state, _stack(recs)

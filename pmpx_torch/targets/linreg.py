@@ -24,7 +24,8 @@ import torch
 from pmpx_torch._device import resolve_device
 from pmpx_torch.kernels import linreg as _k
 
-__all__ = ["BayesLinReg", "make_synthetic_linreg", "pad_to_grid"]
+__all__ = ["BayesLinReg", "loglik_from_rss", "make_synthetic_linreg",
+           "pad_to_grid"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _LANES = 128
@@ -64,6 +65,12 @@ def pad_to_grid(x: torch.Tensor, row_mult: int = 128) -> torch.Tensor:
     xp = torch.zeros((n_pad,), dtype=torch.float32, device=x.device)
     xp[:n] = x
     return xp.reshape(n_pad // _LANES, _LANES)
+
+
+def loglik_from_rss(rss, sigma, n: int, temper: float) -> torch.Tensor:
+    """The tempered Gaussian log-likelihood of n points from their RSS."""
+    s2 = torch.clamp(sigma * sigma, min=1e-30)
+    return temper * (-0.5 * n * (_LOG_2PI + torch.log(s2)) - rss / (2.0 * s2))
 
 
 class BayesLinReg:
@@ -138,10 +145,7 @@ class BayesLinReg:
         return self._rss_from_stats(b0, b1, self.stats)
 
     def _loglik_from_rss(self, rss, sigma):
-        s2 = torch.clamp(sigma * sigma, min=1e-30)
-        return self.temper * (
-            -0.5 * self.n * (_LOG_2PI + torch.log(s2)) - rss / (2.0 * s2)
-        )
+        return loglik_from_rss(rss, sigma, self.n, self.temper)
 
     def _rss_padded(self, b0, b1):
         """RSS handling the sweep kernel's proposal-padding contract."""

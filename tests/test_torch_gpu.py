@@ -771,3 +771,133 @@ def test_packed_on_the_card_matches_generic(cuda, model, remat):
     torch.testing.assert_close(pv, nv, rtol=1e-5, atol=0)
     torch.testing.assert_close(pg, ng, rtol=0,
                                atol=1e-4 * float(ng.abs().max()))
+
+
+# the mesh on the card: a one-rank NCCL world in this process, and gloo
+# ranks that share the card (NCCL refuses two ranks on one GPU)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_equals_the_unsharded_paths(cuda):
+    import torch.distributed as dist
+
+    from pmpx_torch import parallel as par
+
+    mesh = par.make_mesh(devices="cuda")
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    try:
+        _one_rank_equalities(cuda, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _one_rank_equalities(cuda, mesh):
+    from pmpx_torch import parallel as par
+    from pmpx_torch.samplers import pmp
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    x, y = make_synthetic_linreg(g, 5000)
+    target = BayesLinReg(x, y, temper=0.02, method="sweep", device=cuda)
+    cfg = PMPConfig(N=1, depth=5, step_size=0.05, selection="all_first")
+    sup = pmp.make_superstep(target, cfg)
+    th = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda)
+    got = par.run_chains_sharded(sup, 3, th, 10, mesh, device=cuda)
+    want = par.run_chains_vmapped(
+        sup, par.chain_generators(3, 1, cuda)[0], th, 10)
+    assert torch.equal(got[0], want[0])
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), k
+    Theta = th[:1] + 0.1 * torch.randn((64, 3), generator=g, device=cuda)
+    sh = par.ShardedLinReg(x, y, 5000, temper=0.02, mesh=mesh)
+    assert torch.equal(sh.log_prob_batch(Theta),
+                       target.log_prob_batch(Theta))
+    eps = 0.05 * torch.randn((cfg.P, 3), generator=g, device=cuda)
+    u = torch.rand((cfg.P,), generator=g, device=cuda)
+    a = par.make_tree_sharded_superstep(target, cfg, mesh=mesh)(
+        None, th[0], eps=eps, u=u)
+    b = sup(None, th[0], eps=eps, u=u)
+    assert torch.equal(a[0], b[0])
+    for k in b[1]:
+        assert torch.equal(a[1][k], b[1][k]), k
+    before = launches[fc.FARM_KERNEL]
+    roots = [par.run_chains_fused(target, cfg, par.chain_generators(
+        5, 4, cuda), th, 64, m, chunk=32) for m in (mesh, None)]
+    assert launches[fc.FARM_KERNEL] == before + 4
+    assert torch.equal(roots[0], roots[1])
+
+
+def _gloo_data_rank(rank, world, init_file, out):
+    """One rank of a gloo world on the card: the data axis's log-densities
+    of 64 proposals over its shard of 8192 points."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pmpx_torch import parallel as par
+    from pmpx_torch.parallel import mesh as pm
+
+    rank, world = int(rank), int(world)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    x, y, Theta = _gloo_data_inputs(dev)
+    mesh = par.make_mesh(data=world)
+    d = mesh.get_local_rank("data")
+    m = x.shape[0] // world
+    sh = par.ShardedLinReg(x[d * m:(d + 1) * m], y[d * m:(d + 1) * m],
+                           x.shape[0], temper=0.02, mesh=mesh)
+    before = launches["linreg_rss"]
+    logp = sh.log_prob_batch(Theta)
+    torch.save({"logp": logp.cpu(), "device": logp.device.type,
+                "launches": launches["linreg_rss"] - before,
+                "routes": pm.routes}, out)
+    dist.destroy_process_group()
+
+
+def _gloo_data_inputs(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    x, y = make_synthetic_linreg(g, 8192)
+    Theta = torch.tensor([0.0, 0.0, 1.0], device=dev) + 0.1 * torch.randn(
+        (64, 3), generator=g, device=dev)
+    return x, y, Theta
+
+
+@pytest.mark.gpu
+def test_gloo_ranks_on_the_card_hold_the_data_axis(cuda, tmp_path):
+    """2 gloo ranks that share the card: each rank's linreg_rss on the
+    card, the partial sums through the host, the log-densities within rtol
+    1e-5 of the unsharded sweep (the f32 summation order differs)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(here.parent), str(here), os.environ.get("PYTHONPATH", "")]))
+    code = ("import sys, test_torch_gpu as t; "
+            "t._gloo_data_rank(*sys.argv[1:])")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), "2", str(tmp_path / "init"),
+         str(tmp_path / f"rank{r}.pt")], env=env) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0]
+    x, y, Theta = _gloo_data_inputs(cuda)
+    want = BayesLinReg(x, y, temper=0.02, method="sweep",
+                       device=cuda).log_prob_batch(Theta).cpu()
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt")
+        assert res["device"] == "cuda" and res["launches"] == 1
+        assert res["routes"]["all_reduce"]["host"] == 1
+        torch.testing.assert_close(res["logp"], want, rtol=1e-5, atol=0)
