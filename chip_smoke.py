@@ -107,7 +107,21 @@ Phases, each printing its wall time:
    least squares; each rank prints its device, launches and collective
    routes (gloo copies a CUDA tensor through the host), and the launches
    join the ``kernels`` line.  No scaling figure: four processes share
-   one card.
+   one card;
+15. the data-sharded NN posterior and sync-BN (``pmpx_torch.parallel.
+   ShardedNNPosterior``) at CIFAR-10 LeNet's full width (50,000 stand-in
+   images, f32): 15a. a one-rank NCCL mesh in this process, the sharded
+   LeNet (nhwc, remat off and on, P = 2) and PackedLeNet (P = 1) against
+   ``NNPosterior``: densities and values bit for bit, gradients within
+   1e-5 max|g|, and one SP-HMC superstep as ``cifar_hmc`` builds it;
+   15b. four gloo ranks that share the card (child processes, 12,500
+   images a rank, joined with a timeout): LeNet nhwc (P = 2), PackedLeNet
+   (P = 1) and BayesMLP 784-1024-10 over 60,000 MNIST stand-ins (P = 2,
+   its noise from one generator seed on every rank) against the unsharded
+   posterior within ``pmpx``'s tolerances, and one SP-HMC superstep over
+   the sharded LeNet; each rank prints its device, collectives by route,
+   peak GiB and ms per ``value_and_grad_batch``.  No hand kernel runs on
+   this path (its launches are checked to be none).  No scaling figure.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -341,6 +355,28 @@ P14_CHAINS, P14_STEPS = 8, 30
 P14_WORLD, P14_JOIN_S = 4, 300
 P14_RTOL = 1e-5
 P14_DATA_STEPS, P14_DATA_BURN = 1000, 300
+
+# phase 15: the data-sharded NN posterior at CIFAR-10 LeNet's full width
+# (load_cifar10's 50,000 stand-in images, f32, temper 1).  15a, a one-rank
+# NCCL mesh: the nhwc LeNet (remat off and on) at P15_NHWC_P proposals
+# and PackedLeNet at P15_PACKED_P, log_prob_batch and the values bit for
+# bit, the gradients within P15_GAP max|g| (the backward of the
+# concatenated BatchNorm statistics may sum in another order), and one
+# SP-HMC superstep as cifar_hmc builds it (N = 7, step 0.1, momentum
+# 0.0005; the paper's 50,000 supersteps cut to 1) bit for bit.  15b,
+# P15_WORLD gloo ranks sharing the card, each joined within P15_JOIN_S:
+# the same LeNets and BayesMLP 784-1024-10 over load_mnist's 60,000
+# stand-ins at P15_BNN_P (one generator seed on every rank) within pmpx's
+# tolerances (tests/test_sharded_nn.py:62-69: values rtol 2e-5 / atol
+# 1e-6, gradients rtol 5e-3 / atol 1e-5) of the unsharded posterior,
+# computed in this process first, and the SP-HMC superstep within
+# P15_HMC_TOL of the unsharded one on every rank alike
+P15_NHWC_P, P15_PACKED_P, P15_BNN_P, P15_BNN_HIDDEN = 2, 1, 2, 1024
+P15_GAP = 1e-5
+P15_WORLD, P15_JOIN_S = 4, 300
+P15_VAL_RTOL, P15_VAL_ATOL = 2e-5, 1e-6
+P15_GRAD_RTOL, P15_GRAD_ATOL = 5e-3, 1e-5
+P15_HMC_TOL = 1e-5
 
 # phase 6's P sweeps on the benchmark cell's data: one SWEEP_STEPS-superstep
 # launch per (N, depth), each timed over SWEEP_REPS, emit="all" up to its
@@ -1549,6 +1585,303 @@ def phase14(dev, name: str, smi: str, bench) -> dict:
     return p14
 
 
+def phase15_inputs(dev) -> dict:
+    """Phase 15's data and proposals, made alike in every process from
+    fixed seeds on the card: load_cifar10's 50,000 training images and
+    load_mnist's 60,000, LeNet's theta0 and P15_NHWC_P proposals near it,
+    BayesMLP's P15_BNN_P proposals near its theta0, and the SP-HMC
+    sampler that cifar_hmc builds."""
+    from pmpx_torch.data import load_cifar10, load_mnist
+    from pmpx_torch.experiments import cifar_hmc
+    from pmpx_torch.models import BayesMLP, LeNet
+    from pmpx_torch.targets.nn import NNPosterior
+
+    x, y, _, _ = load_cifar10(device=dev)
+    xm, ym, _, _ = load_mnist(device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    t0 = NNPosterior(LeNet(), x[:8], y[:8], device=dev).init_theta()
+    b0 = NNPosterior(BayesMLP(hidden=P15_BNN_HIDDEN), xm[:8], ym[:8],
+                     stochastic=True, device=dev).init_theta()
+    return {
+        "x": x, "y": y, "xm": xm, "ym": ym, "theta0": t0,
+        "Theta": t0 + 0.02 * torch.randn((P15_NHWC_P, t0.numel()),
+                                         generator=g, device=dev),
+        "Theta_bnn": b0 + 0.01 * torch.randn((P15_BNN_P, b0.numel()),
+                                             generator=g, device=dev),
+        "spec": cifar_hmc.sampler_spec("sp_hmc", 7, 0.1, 0.0005),
+    }
+
+
+def _p15_models():
+    from pmpx_torch.models import LeNet, PackedLeNet
+
+    return {"nhwc": (LeNet, P15_NHWC_P), "packed": (PackedLeNet,
+                                                    P15_PACKED_P)}
+
+
+def _p15_gen(dev, seed: int) -> torch.Generator:
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def phase15_rank(rank, world, init_file, out_dir) -> None:
+    """One rank of phase 15b, in a process of its own: a gloo world of
+    ``world`` ranks (``file://`` init) that share the card, each with its
+    shard of the images.  Runs the sharded LeNet (nhwc, packed), BayesMLP
+    and one SP-HMC superstep, every rank alike; saves what it got to
+    ``out_dir/rank{rank}.pt`` and prints its device, collectives by
+    route, peak GiB and ms per ``value_and_grad_batch`` as one JSON line."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pmpx_torch import parallel as par
+    from pmpx_torch.kernels import launches, reset_launches
+    from pmpx_torch.models import BayesMLP
+    from pmpx_torch.parallel import mesh as pm
+    from pmpx_torch.targets.nn import NNPosterior
+
+    rank, world = int(rank), int(world)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=P15_JOIN_S))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    inp = phase15_inputs(dev)
+    mesh = pm.make_mesh(data=world)
+    d = mesh.get_local_rank(pm.AXIS_DATA)
+    reset_launches()
+    res, line = {}, {"rank": rank, "current_device":
+                     f"cuda:{torch.cuda.current_device()}",
+                     "device": torch.cuda.get_device_name(dev)}
+
+    def shard(x, y):
+        m = x.shape[0] // world
+        return x[d * m:(d + 1) * m], y[d * m:(d + 1) * m]
+
+    def timed(label, fn):
+        """fn() once for the result, once more timed; its peak GiB."""
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        line[f"{label}_vg_ms"] = (time.perf_counter() - t0) * 1e3
+        line[f"{label}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return tuple(a.cpu() for a in out)
+
+    n = inp["x"].shape[0]
+    x_l, y_l = shard(inp["x"], inp["y"])
+    posts = {}
+    for label, (cls, P) in _p15_models().items():
+        s = par.ShardedNNPosterior.from_posterior(
+            NNPosterior(cls(), x_l, y_l, device=dev), x_l, y_l, n,
+            mesh=mesh)
+        posts[label] = s
+        res[label] = timed(label, lambda s=s, P=P: s.value_and_grad_batch(
+            inp["Theta"][:P]))
+    xm_l, ym_l = shard(inp["xm"], inp["ym"])
+    bnn = par.ShardedNNPosterior.from_posterior(
+        NNPosterior(BayesMLP(hidden=P15_BNN_HIDDEN), xm_l, ym_l,
+                    stochastic=True, device=dev),
+        xm_l, ym_l, inp["xm"].shape[0], mesh=mesh)
+    res["bnn"] = timed("bnn", lambda: bnn.value_and_grad_batch(
+        inp["Theta_bnn"], generator=_p15_gen(dev, 151)))
+    sup = inp["spec"].build(posts["nhwc"])
+    th, out = sup(_p15_gen(dev, 152), inp["theta0"])
+    torch.cuda.synchronize()
+    res["hmc"] = (th.cpu(), bool(out["accepted"]),
+                  float(out["log_accept"]))
+    line["launches"] = {k: v for k, v in launches.items() if v}
+    line["routes"] = pm.routes
+    line["shard_images"] = int(x_l.shape[0])
+    res["line"] = line
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    print(json.dumps(line), flush=True)
+    dist.destroy_process_group()
+
+
+def phase15(dev, name: str, smi: str) -> dict:
+    """Phase 15's runs and gates: 15a in this process on a one-rank NCCL
+    mesh, then the unsharded BayesMLP reference, then 15b in P15_WORLD
+    gloo ranks sharing the card; returns the hand kernels' launches (none
+    expected)."""
+    import torch.distributed as dist
+
+    from pmpx_torch import parallel as par
+    from pmpx_torch.kernels import launches, reset_launches
+    from pmpx_torch.models import BayesMLP, LeNet
+    from pmpx_torch.parallel import mesh as pm
+    from pmpx_torch.targets.nn import NNPosterior
+
+    def vg_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    inp = phase15_inputs(dev)
+    x, y, n = inp["x"], inp["y"], inp["x"].shape[0]
+    reset_launches()
+
+    # 15a: a one-rank NCCL mesh, each sharded posterior against the
+    # unsharded one, deterministic algorithms on (cuDNN's backward may
+    # otherwise sum in another order from one call to the next)
+    t0 = time.perf_counter()
+    routes0 = dict(pm.routes["all_reduce"])
+    mesh = pm.make_mesh(devices=dev)
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            "15a: a world of one rank on NCCL")
+    refs, rec = {}, {}
+    cases = [("nhwc", lambda: LeNet(), P15_NHWC_P),
+             ("nhwc_remat", lambda: LeNet(remat=True), P15_NHWC_P),
+             ("packed", _p15_models()["packed"][0], P15_PACKED_P)]
+    with deterministic() as flagged:
+        for label, make, P in cases:
+            Th = inp["Theta"][:P]
+            post = NNPosterior(make(), x, y, device=dev)
+            s = par.ShardedNNPosterior.from_posterior(post, x, y, n,
+                                                      mesh=mesh)
+            a, b = s.log_prob_batch(Th), post.log_prob_batch(Th)
+            require(torch.equal(a, b), f"15a {label}: log_prob_batch == "
+                    f"NNPosterior's at P = {P}, bit for bit ({a.tolist()} "
+                    f"against {b.tolist()})")
+            tv, tg = post.value_and_grad_batch(Th)
+            torch.cuda.reset_peak_memory_stats()
+            sv, sg = s.value_and_grad_batch(Th)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # each timed warm, once more
+            t_ms = vg_ms(lambda: post.value_and_grad_batch(Th))[1]
+            s_ms = vg_ms(lambda: s.value_and_grad_batch(Th))[1]
+            gap = float((sg - tg).abs().max() / tg.abs().max())
+            require(torch.equal(sv, tv), f"15a {label}: the values of "
+                    f"value_and_grad_batch bit for bit ({sv.tolist()} "
+                    f"against {tv.tolist()})")
+            require(gap <= P15_GAP, f"15a {label}: gradients within "
+                    f"{P15_GAP} max|g| ({gap:.3g})")
+            rec[label] = {"P": P, "grad_gap_over_max": gap,
+                          "grad_bit_equal": bool(torch.equal(sg, tg)),
+                          "sharded_vg_ms": s_ms, "unsharded_vg_ms": t_ms,
+                          "sharded_peak_gib": peak}
+            if label != "nhwc_remat":
+                refs[label] = (tv.cpu(), tg.cpu())
+            if label == "nhwc":
+                spec = inp["spec"]
+                a = spec.build(s)(_p15_gen(dev, 152), inp["theta0"])
+                b = spec.build(post)(_p15_gen(dev, 152), inp["theta0"])
+                hmc_gap = float((a[0] - b[0]).abs().max())
+                rec["sp_hmc"] = {k: [float(a[1][k]), float(b[1][k])]
+                                 for k in ("accepted", "log_accept")}
+                require(hmc_gap <= (0.0 if rec[label]["grad_bit_equal"]
+                                    else P15_HMC_TOL),
+                        f"15a: one SP-HMC superstep over the sharded LeNet "
+                        f"== the unsharded one from the same generator "
+                        f"({hmc_gap:.3g})")
+                rec["sp_hmc_theta_gap"] = hmc_gap
+                refs["hmc"] = b[0].cpu()
+            del post, s, tv, tg, sv, sg
+            torch.cuda.empty_cache()
+    routes_a = {r: v - routes0[r] for r, v in pm.routes["all_reduce"].items()}
+    require(routes_a["host"] == 0, "15a: every collective on NCCL direct")
+    print(json.dumps({"phase15a": {
+        "world": dist.get_world_size(), "backend": dist.get_backend(),
+        "n_images": n, "cases": rec, "all_reduce_routes": routes_a,
+        "nondeterministic_ops": sorted(flagged),
+        "wall_s": time.perf_counter() - t0, "device": name, "power": smi}}))
+    dist.destroy_process_group()
+
+    # the unsharded BayesMLP on the MNIST stand-ins, from the ranks' seed
+    bnn = NNPosterior(BayesMLP(hidden=P15_BNN_HIDDEN), inp["xm"], inp["ym"],
+                      stochastic=True, device=dev)
+    refs["bnn"] = tuple(a.cpu() for a in bnn.value_and_grad_batch(
+        inp["Theta_bnn"], generator=_p15_gen(dev, 151)))
+    del bnn, inp, x, y
+    torch.cuda.empty_cache()
+    p15 = {k: v for k, v in launches.items() if v}
+    require(not p15, f"15a: no hand kernel on this path: {p15}")
+
+    # 15b: P15_WORLD gloo ranks sharing the card
+    t0 = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for r in range(P15_WORLD):
+            with open(f"{tmp}/rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke as c; "
+                     "c.phase15_rank(*sys.argv[1:])", str(r),
+                     str(P15_WORLD), f"{tmp}/init", tmp],
+                    cwd=here, stdout=log, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, OMP_NUM_THREADS="2")))
+        deadline = time.monotonic() + P15_JOIN_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for r in range(P15_WORLD):
+            print(f"-- rank {r} (exit {procs[r].returncode}):")
+            print(Path(f"{tmp}/rank{r}.log").read_text().rstrip())
+        require(all(p.returncode == 0 for p in procs),
+                f"15b: every rank ended with exit 0 within {P15_JOIN_S} s")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(P15_WORLD)]
+    wall = time.perf_counter() - t0
+
+    errs = {}
+    for r, res in enumerate(ranks):
+        line = res["line"]
+        require(line["current_device"] == "cuda:0" and not line["launches"],
+                f"15b rank {r}: on cuda:0, no hand kernel: {line}")
+        require(line["routes"]["all_reduce"]["direct"] == 0,
+                f"15b rank {r}: every collective through the host (gloo)")
+        for label in ("nhwc", "packed", "bnn"):
+            (v, g), (wv, wg) = res[label], refs[label]
+            v_err = float(((v - wv).abs() / (P15_VAL_ATOL + P15_VAL_RTOL
+                                             * wv.abs())).max())
+            g_err = float(((g - wg).abs() / (P15_GRAD_ATOL + P15_GRAD_RTOL
+                                             * wg.abs())).max())
+            e = errs.setdefault(label, {"value_rel": 0.0, "grad_over_max":
+                                        0.0, "value_tol_share": 0.0,
+                                        "grad_tol_share": 0.0})
+            e["value_rel"] = max(e["value_rel"], float(
+                ((v - wv).abs() / wv.abs()).max()))
+            e["grad_over_max"] = max(e["grad_over_max"], float(
+                (g - wg).abs().max() / wg.abs().max()))
+            e["value_tol_share"] = max(e["value_tol_share"], v_err)
+            e["grad_tol_share"] = max(e["grad_tol_share"], g_err)
+            require(v_err <= 1.0 and g_err <= 1.0,
+                    f"15b rank {r} {label}: values and gradients within "
+                    f"pmpx's tolerances (shares of them: {v_err:.3g}, "
+                    f"{g_err:.3g})")
+        th, acc, log_acc = res["hmc"]
+        res["line"]["sp_hmc"] = {"accepted": acc, "log_accept": log_acc}
+        hmc = float((th - refs["hmc"]).abs().max())
+        errs["sp_hmc_theta"] = max(errs.get("sp_hmc_theta", 0.0), hmc)
+        require(torch.equal(th, ranks[0]["hmc"][0]) and hmc <= P15_HMC_TOL,
+                f"15b rank {r}: the SP-HMC superstep ends at rank 0's "
+                f"theta, within {P15_HMC_TOL} of the unsharded one "
+                f"({hmc:.3g})")
+    print(json.dumps({"phase15b": {
+        "world": P15_WORLD, "backend": "gloo", "device": name,
+        "power": smi, "errors": errs, "wall_s": wall,
+        "note": (f"{P15_WORLD} processes sharing one card: these times "
+                 "are that cost, not a scaling figure"),
+        "ranks": [res["line"] for res in ranks]}}))
+    print(json.dumps({"phase15_reduced": [
+        "cifar_hmc SP-HMC num_steps 1, in 15a and 15b (the paper's "
+        "50,000)"]}))
+    return p15
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2598,6 +2931,12 @@ def main() -> int:
         for k in kernels:
             if k["name"] in p14:
                 k["launches"] += p14[k["name"]]
+
+    with Phase("15 the data-sharded NN posterior and sync-BN"):
+        p15 = phase15(dev, name, smi)
+        for k in kernels:
+            if k["name"] in p15:
+                k["launches"] += p15[k["name"]]
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

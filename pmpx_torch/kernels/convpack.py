@@ -28,8 +28,8 @@ proposal axis) and autodiff compose.  ``conv2d(remat=True)`` takes the
 KH*KW slices again in the backward pass instead of saving them, through a
 ``torch.autograd.Function`` with a vmap rule and its own backward
 (``torch.utils.checkpoint`` does not run under ``torch.func.grad``).
-``batchnorm``'s ``axis_name`` (sync-BN over a mesh) waits for ROADMAP §1
-item 20.
+``batchnorm``'s ``axis_name`` is sync-BN over a process group (the data
+axis of a mesh), through :func:`pmpx_torch.parallel.mesh.psum`.
 """
 
 from __future__ import annotations
@@ -194,17 +194,30 @@ def batchnorm(
     Matches flax ``nn.BatchNorm(use_running_average=False)`` on the valid
     columns (biased variance, eps inside the rsqrt); junk columns are
     excluded from the statistics but still normalised (they stay finite).
-    ``axis_name`` (sync-BN over a mesh) is ROADMAP §1 item 20: only None.
+
+    ``axis_name``: sync-BN over the ranks of a process group (the data
+    axis's, ``mesh.get_group("data")``; no axis name is in scope as under
+    ``shard_map``).  As ``pmpx``'s two-pass form: the masked sums are
+    summed over the group, the count is multiplied by the group's size,
+    then the masked centred squares are summed over the group; two
+    collectives (:func:`pmpx_torch.parallel.mesh.psum`, which ``vmap`` and
+    ``grad`` transform).  The count is the global one only where every
+    rank holds a shard of the same size, as ``pmpx`` assumes.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "sync-BN over a mesh axis (axis_name) is not ported yet "
-            "(ROADMAP §1 item 20)")
     m = valid_mask(g, x.dtype, x.device)
     count = x.shape[0] * g.h * g.w
-    mean = torch.sum(x * m, dim=(0, 2)) / count  # (C,)
+    s = torch.sum(x * m, dim=(0, 2))  # (C,)
+    if axis_name is not None:
+        from pmpx_torch.parallel.mesh import psum
+
+        s = psum(s, axis_name)
+        count = count * axis_name.size()
+    mean = s / count
     centered = x - mean[:, None]
-    var = torch.sum((centered * m) ** 2, dim=(0, 2)) / count
+    v = torch.sum((centered * m) ** 2, dim=(0, 2))
+    if axis_name is not None:
+        v = psum(v, axis_name)
+    var = v / count
     inv = torch.rsqrt(var + eps)
     return centered * (scale * inv)[:, None] + bias[:, None]
 

@@ -7,7 +7,7 @@
 | MnistLSTM  | LSTM(28->64) + Linear(10), ``complex_nets/Mnist/LSTM/PMP_LSTM.py:22-43`` | yes |
 | LeNet      | CIFAR-10 LeNet w/ BatchNorm, ``complex_nets/Cifar-10/cifar_PMPhmc.py:33-55`` | yes |
 | BayesMLP   | torchbnn BayesLinear 784-1024-10 mean-field net, ``Bayesian Network Training/main.py:173-177`` | yes |
-| PackedLeNet, PackedMnistCNN | channel-packed layouts (``pmpx/models/packed.py``) | yes (``bn_axis``: ROADMAP §1 item 20) |
+| PackedLeNet, PackedMnistCNN | channel-packed layouts (``pmpx/models/packed.py``) | yes |
 
 Each model is an ``nn.Module`` whose state-dict keys are flax's parameter
 paths joined by dots, and whose ``flax_layout()`` lists (path, shape,

@@ -47,16 +47,30 @@ def conv_flax(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, group=None) -> torch.Tensor:
     """``flax.linen.BatchNorm(use_running_average=False)`` over the batch
     and spatial axes of an NCHW tensor, with flax's fast variance E[x^2] -
     E[x]^2 (clamped at 0) in float32.  No running statistics: the
     posterior always normalises by the batch at hand, and this form runs
-    under ``torch.func.vmap``."""
+    under ``torch.func.vmap``.
+
+    ``group``: sync-BN over the ranks of a process group (the data axis of
+    a mesh), as flax's ``axis_name``: the local E[x] and E[x^2] are
+    averaged over the group in one collective
+    (:func:`pmpx_torch.parallel.mesh.psum` of their concatenation, over
+    the group's size), and the clamp comes after.  The average is the
+    global one only where every rank holds a shard of the same size, as
+    flax's ``pmean`` assumes."""
     dims = (0, 2, 3)
     xf = x.float()
     mean = xf.mean(dim=dims)
-    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    mean2 = (xf * xf).mean(dim=dims)
+    if group is not None:
+        from pmpx_torch.parallel.mesh import psum
+
+        stats = psum(torch.cat([mean, mean2]), group) / group.size()
+        mean, mean2 = stats.chunk(2)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
     mul = torch.rsqrt(var + eps) * scale.float()
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bias.float()[
         :, None, None]

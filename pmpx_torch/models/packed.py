@@ -11,9 +11,12 @@ slices and products).
 
 ``pmpx`` measured this layout as a negative result: its native NHWC
 convolutions were faster and smaller.  The card's numbers are
-``pmpx_torch.experiments.nn_perf``'s (PERF.md §6).  ``bn_axis`` (sync-BN
-statistics over a mesh axis under data sharding) is ROADMAP §1 item 20:
-only ``None`` is taken.
+``pmpx_torch.experiments.nn_perf``'s (PERF.md §6).  ``bn_axis``: sync-BN
+statistics over the data axis's process group under data sharding
+(``convpack.batchnorm``'s ``axis_name``; :class:`pmpx_torch.parallel.
+ShardedNNPosterior` binds it through ``with_bn_axis``).  ``PackedMnistCNN``
+has no BatchNorm and takes the axis without reading it, as ``pmpx``'s
+does.
 """
 
 from __future__ import annotations
@@ -33,26 +36,21 @@ def _dense(params: dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return dense(x, params[f"{name}.kernel"], params[f"{name}.bias"])
 
 
-def _check_bn_axis(bn_axis) -> None:
-    if bn_axis is not None:
-        raise NotImplementedError(
-            f"bn_axis={bn_axis!r}: sync-BN over a mesh axis is not ported "
-            "yet (ROADMAP §1 item 20)")
-
-
 def lenet_packed_apply(params: dict, x: torch.Tensor, remat: bool = True,
                        bn_axis=None) -> torch.Tensor:
     """LeNet's forward (``models/lenet.py``) in packed layout.
 
     ``params``: {flax path: leaf}; x: (B, 32, 32, 3) NHWC -> logits (B, 10).
+    ``bn_axis``: the process group for sync-BN statistics under data
+    sharding.
     """
-    _check_bn_axis(bn_axis)
     y, g = cp.pack_images(x)
     for k in (0, 1):
         y, g = cp.conv2d(y, params[f"Conv_{k}.kernel"],
                          params[f"Conv_{k}.bias"], g, remat=remat)
         y = cp.batchnorm(y, params[f"BatchNorm_{k}.scale"],
-                         params[f"BatchNorm_{k}.bias"], g)
+                         params[f"BatchNorm_{k}.bias"], g,
+                         axis_name=bn_axis)
         y, g = cp.max_pool2(torch.relu(y), g)
     h = cp.unpack(y, g).reshape(x.shape[0], -1)  # NHWC flatten order
     h = torch.relu(_dense(params, "Dense_0", h))
@@ -67,7 +65,6 @@ def cnn_packed_apply(params: dict, x: torch.Tensor, remat: bool = True,
     x: (B, 28, 28[, 1]) -> logits (B, 10).  (``bn_axis`` is taken for the
     shims' uniformity; MnistCNN has no BatchNorm.)
     """
-    _check_bn_axis(bn_axis)
     y, g = cp.pack_images(x)
     y, g = cp.conv2d(y, params["Conv_0.kernel"], params["Conv_0.bias"], g,
                      remat=remat)
@@ -86,7 +83,6 @@ class _Packed:
     _packed_forward = None
 
     def _setup(self, remat: bool, bn_axis) -> None:
-        _check_bn_axis(bn_axis)
         self.remat = remat
         self.bn_axis = bn_axis
 

@@ -3,9 +3,9 @@ device mesh and its collectives (:mod:`~pmpx_torch.parallel.mesh`),
 several chains on one card or over the mesh's ``chains`` axis, with the
 fused chain farm (:mod:`~pmpx_torch.parallel.chains`), the linreg
 likelihood over the ``data`` axis (:mod:`~pmpx_torch.parallel.
-sharded_linreg`) and the PMP superstep over the ``tree`` axis
-(:mod:`~pmpx_torch.parallel.tree_shard`).  ``pmpx``'s
-``ShardedNNPosterior`` is not ported yet (ROADMAP §1 item 20.5)."""
+sharded_linreg`), the NN posteriors over the ``data`` axis with sync-BN
+(:mod:`~pmpx_torch.parallel.sharded_nn`) and the PMP superstep over the
+``tree`` axis (:mod:`~pmpx_torch.parallel.tree_shard`)."""
 
 from pmpx_torch.parallel.mesh import (
     AXIS_CHAINS,
@@ -22,6 +22,7 @@ from pmpx_torch.parallel.chains import (
     run_chains_vmapped,
 )
 from pmpx_torch.parallel.sharded_linreg import ShardedLinReg
+from pmpx_torch.parallel.sharded_nn import ShardedNNPosterior
 from pmpx_torch.parallel.tree_shard import make_tree_sharded_superstep
 
 __all__ = [
@@ -36,5 +37,6 @@ __all__ = [
     "run_chains_sharded",
     "run_chains_vmapped",
     "ShardedLinReg",
+    "ShardedNNPosterior",
     "make_tree_sharded_superstep",
 ]

@@ -20,7 +20,9 @@ process that has none, :func:`make_mesh` starts a world of one rank, so
 that one process needs no launcher, as ``pmpx`` needs none for one device.
 
 Every collective of the port goes through :func:`all_reduce_sum` and
-:func:`all_gather_cat`.  NCCL takes the card's tensors as they are.  A
+:func:`all_gather_cat`, outside any ``torch.func`` transform, or through
+:func:`psum`, the one that may sit inside ``vmap`` and ``grad`` (sync-BN
+in a forward pass).  NCCL takes the card's tensors as they are.  A
 world on gloo (several ranks that share one card, where NCCL refuses two
 ranks on one GPU) gets each CUDA tensor copied to the host and back:
 transport only, the computation stays on the card.  ``routes`` counts the
@@ -38,7 +40,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from pmpx_torch._device import resolve_device
 
 __all__ = ["make_mesh", "AXIS_CHAINS", "AXIS_DATA", "AXIS_TREE",
-           "all_reduce_sum", "all_gather_cat", "routes"]
+           "all_reduce_sum", "all_gather_cat", "psum", "routes"]
 
 AXIS_CHAINS = "chains"
 AXIS_DATA = "data"
@@ -106,6 +108,47 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     routes["all_reduce"]["host" if host else "direct"] += 1
     return buf.to(t.device) if host else buf
+
+
+class _Psum(torch.autograd.Function):
+    """:func:`all_reduce_sum` as a function that autograd and
+    ``torch.func`` can transform.  Its adjoint is itself: the cotangent of
+    a sum over the group is the sum over the group of the ranks'
+    cotangents (``lax.psum``'s transpose).  Its ``vmap`` rule reduces the
+    whole batch in one collective, where vmap's fallback would make one
+    per sample and return the wrong sums."""
+
+    @staticmethod
+    def forward(x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Psum.apply(g, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        if in_dims[0] is None:
+            return _Psum.apply(x, group), None
+        return _Psum.apply(x.movedim(in_dims[0], 0), group), 0
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise sum of ``x`` over the ranks of ``group``, on
+    ``x``'s device, differentiable (its gradient is the group's sum of
+    the ranks' cotangents) and batched under ``torch.func.vmap`` (one
+    collective for the whole batch: a ``vmap`` with ``chunk_size`` makes
+    one per chunk).  Every rank of the group must call it in the same
+    order with tensors of the same shape, as every collective must."""
+    if isinstance(group, str):
+        raise TypeError(
+            f"psum over {group!r}: pass the axis's process group "
+            f"(mesh.get_group({group!r})); no axis name is in scope here")
+    return _Psum.apply(x, group)
 
 
 def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

@@ -103,7 +103,7 @@ def test_pack_unpack_and_mask_match_pmpx():
         np.asarray(jcp.unpack(jnp.asarray(y.numpy()), jcp.Grid(4, 6, 3))))
 
 
-def test_batchnorm_matches_pmpx_and_masks_junk():
+def test_batchnorm_matches_pmpx_and_masks_junk(tmp_path):
     g = cp.Grid(h=6, wr=8, w=5)
     x = torch.from_numpy(_rand((3, 4, g.size), 5, 2.0) + 1.0)
     scale, bias = torch.from_numpy(_rand((4,), 6)), torch.from_numpy(
@@ -123,8 +123,56 @@ def test_batchnorm_matches_pmpx_and_masks_junk():
     again = cp.batchnorm(poison, scale, bias, g)
     m = cp.valid_mask(g)
     torch.testing.assert_close(again * m, got * m, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        cp.batchnorm(x, scale, bias, g, axis_name="data")
+    _sync_batchnorm_matches_pmpx(tmp_path)
+
+
+def _sync_batchnorm_matches_pmpx(tmp_path):
+    """axis_name: 4 gloo ranks, each with 2 of the 8 images, against
+    pmpx's batchnorm(axis_name="data") under shard_map on 4 of the 8
+    virtual devices: the outputs, and the gradients of sum(out * w) for
+    each shard, the scale and the bias; two collectives a forward pass."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+    from pmpx.parallel import make_mesh as jmake_mesh
+    from test_torch_sharded_nn import join_world, spawn_world
+
+    g = cp.Grid(h=6, wr=8, w=5)
+    # unequal data on each rank: shard r's mean moves with r
+    x = _rand((8, 4, g.size), 9, 2.0) + np.repeat(np.arange(4.0), 2)[
+        :, None, None].astype(np.float32)
+    w = _rand((8, 4, g.size), 10)
+    scale, bias = _rand((4,), 11) + 1.0, _rand((4,), 12)
+    jg = jcp.Grid(6, 8, 5)
+
+    def body(x, w, scale, bias):
+        def loss(x, scale, bias):
+            return (jcp.batchnorm(x, scale, bias, jg, axis_name="data")
+                    * w).sum()
+
+        gx, gs, gb = jax.grad(loss, argnums=(0, 1, 2))(x, scale, bias)
+        return (jcp.batchnorm(x, scale, bias, jg, axis_name="data"), gx,
+                jax.lax.psum(gs, "data"), jax.lax.psum(gb, "data"))
+
+    want = jax.jit(shard_map(
+        body, mesh=jmake_mesh(chains=1, data=4),
+        in_specs=(P("data"), P("data"), P(), P()),
+        out_specs=(P("data"), P("data"), P(), P()), check_vma=False))(
+        x, w, scale, bias)
+    torch.save({"x": torch.from_numpy(x), "w": torch.from_numpy(w),
+                "scale": torch.from_numpy(scale),
+                "bias": torch.from_numpy(bias), "grid": (6, 8, 5)},
+               tmp_path / "bn.pt")
+    ranks = join_world(*spawn_world(tmp_path, 4,
+                                    "test_torch_sharded_nn:bn_rank",
+                                    tmp_path / "bn.pt"))
+    y, gx, gs, gb = (np.asarray(a) for a in want)
+    for r, res in enumerate(ranks):
+        sl = slice(2 * r, 2 * r + 2)
+        for got, ref in ((res["y"], y[sl]), (res["gx"], gx[sl]),
+                         (res["gscale"], gs), (res["gbias"], gb)):
+            np.testing.assert_allclose(got.numpy(), ref, rtol=CONV_TOL,
+                                       atol=CONV_TOL)
+        assert res["calls"] == 2
 
 
 def test_max_pool2_matches_pmpx_and_needs_an_even_grid():
@@ -216,15 +264,34 @@ def test_conv2d_remat_is_the_plain_conv_under_vmap_grad(wr):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("model", ["lenet", "cnn"])
-def test_bn_axis_waits_for_item_20(model):
-    cls = MODELS[model][3]
-    with pytest.raises(NotImplementedError, match="item 20"):
-        cls(bn_axis="data")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        cls().with_bn_axis("data")
-    again = cls(remat=False).with_bn_axis(None)
-    assert type(again) is cls and again.remat is False
+@pytest.mark.parametrize("model", ["lenet", "cnn", "nhwc_lenet"])
+@pytest.mark.parametrize("remat", [True, False])
+def test_with_bn_axis_keeps_remat_and_class(model, remat):
+    """with_bn_axis(axis), pmpx's one argument: the same class, remat and
+    parameter layout, the axis bound; the model it came from unchanged."""
+    cls = LeNet if model == "nhwc_lenet" else MODELS[model][3]
+    base = cls(remat=remat)
+    again = base.with_bn_axis("data")
+    assert type(again) is cls and again.remat is remat
+    assert again.bn_axis == "data" and base.bn_axis is None
+    assert again.flax_layout() == base.flax_layout()
+    assert cls(remat=remat, bn_axis="data").bn_axis == "data"
+    assert again.with_bn_axis(None).bn_axis is None
+
+
+def test_packed_cnn_ignores_the_bn_axis():
+    """MnistCNN has no BatchNorm: PackedMnistCNN takes an axis and does
+    not read it, as pmpx's does (pmpx/models/packed.py:82-87), outside any
+    mesh."""
+    jpost, packed, _ = _pair("cnn", B=4)
+    theta = torch.from_numpy(_thetas(jpost, 1)[0])
+    axis = NNPosterior(PackedMnistCNN(bn_axis="data"), packed.X.numpy(),
+                       packed.Y.numpy(), device="cpu")
+    assert torch.equal(axis.log_prob(theta), packed.log_prob(theta))
+    jaxis = JPost(JPCNN(bn_axis="data"), jpost.X, jpost.Y)
+    np.testing.assert_allclose(
+        float(axis.log_prob(theta)),
+        float(jaxis.log_prob(jnp.asarray(theta.numpy()))), rtol=VAL_RTOL)
 
 
 class _TorchLeNet(torch.nn.Module):

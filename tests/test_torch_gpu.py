@@ -901,3 +901,118 @@ def test_gloo_ranks_on_the_card_hold_the_data_axis(cuda, tmp_path):
         assert res["device"] == "cuda" and res["launches"] == 1
         assert res["routes"]["all_reduce"]["host"] == 1
         torch.testing.assert_close(res["logp"], want, rtol=1e-5, atol=0)
+
+
+# the data-sharded NN posterior on the card: sync-BN inside the
+# torch.func transforms
+
+
+def _lenet_posterior(dev, n=256, remat=False):
+    from pmpx_torch.data import load_cifar10
+    from pmpx_torch.models import LeNet
+    from pmpx_torch.targets.nn import NNPosterior
+
+    x, y, _, _ = load_cifar10(n_train=n, n_test=8, device=dev)
+    post = NNPosterior(LeNet(remat=remat), x, y, temper=0.5, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    Theta = post.init_theta() + 0.02 * torch.randn(
+        (2, post.d), generator=g, device=dev)
+    return post, x, y, Theta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_one_rank_nccl_sharded_lenet_equals_the_posterior(cuda, remat):
+    """data=1 on NCCL: log_prob_batch and the values bit for bit, the
+    gradients within 1e-5 max|g| (the backward of the concatenated
+    statistics may sum in another order), every collective direct."""
+    import torch.distributed as dist
+
+    from pmpx_torch import parallel as par
+    from pmpx_torch.parallel import mesh as pm
+
+    mesh = par.make_mesh(devices="cuda")
+    try:
+        post, x, y, Theta = _lenet_posterior(cuda, remat=remat)
+        s = par.ShardedNNPosterior.from_posterior(post, x, y, x.shape[0],
+                                                  mesh=mesh)
+        host = pm.routes["all_reduce"]["host"]
+        assert torch.equal(s.log_prob_batch(Theta),
+                           post.log_prob_batch(Theta))
+        (sv, sg), (tv, tg) = (p.value_and_grad_batch(Theta)
+                              for p in (s, post))
+        assert torch.equal(sv, tv)
+        torch.testing.assert_close(sg, tg, rtol=0,
+                                   atol=1e-5 * float(tg.abs().max()))
+        assert torch.equal(s.accuracy(Theta[0]), post.accuracy(Theta[0]))
+        assert pm.routes["all_reduce"]["host"] == host
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_bn_rank(rank, world, init_file, out):
+    """One rank of a gloo world on the card: its shard of 256 CIFAR
+    stand-ins under the sharded LeNet, sync-BN through the host."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pmpx_torch import parallel as par
+    from pmpx_torch.parallel import mesh as pm
+
+    rank, world = int(rank), int(world)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    post, x, y, Theta = _lenet_posterior(dev)
+    mesh = par.make_mesh(data=world)
+    m = x.shape[0] // world
+    s = par.ShardedNNPosterior.from_posterior(
+        post, x[rank * m:(rank + 1) * m], y[rank * m:(rank + 1) * m],
+        x.shape[0], mesh=mesh)
+    v, g = s.value_and_grad_batch(Theta)
+    torch.save({"v": v.cpu(), "g": g.cpu(), "device": g.device.type,
+                "routes": pm.routes}, out)
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gloo_ranks_on_the_card_sync_batch_norm(cuda, tmp_path):
+    """2 gloo ranks that share the card: every BatchNorm's statistics and
+    their adjoints go through the host (2 BatchNorms x 2 passes, plus the
+    values and gradients), the computation stays on the card, and the
+    values and gradients are the unsharded posterior's within pmpx's
+    tolerances (tests/test_sharded_nn.py:62-69)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(here.parent), str(here), os.environ.get("PYTHONPATH", "")]))
+    code = ("import sys, test_torch_gpu as t; "
+            "t._gloo_bn_rank(*sys.argv[1:])")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), "2", str(tmp_path / "init"),
+         str(tmp_path / f"rank{r}.pt")], env=env) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=180)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0]
+    post, _, _, Theta = _lenet_posterior(cuda)
+    wv, wg = (a.cpu() for a in post.value_and_grad_batch(Theta))
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt")
+        assert res["device"] == "cuda"
+        assert res["routes"]["all_reduce"] == {"direct": 0, "host": 6}
+        torch.testing.assert_close(res["v"], wv, rtol=2e-5, atol=1e-6)
+        torch.testing.assert_close(res["g"], wg, rtol=5e-3, atol=1e-5)

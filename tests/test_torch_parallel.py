@@ -655,8 +655,7 @@ def test_top_level_names_cover_pmpx():
     assert set(pmpx.__all__) <= set(pmpx_torch.__all__)
     for name in pmpx_torch.__all__:
         assert getattr(pmpx_torch, name) is not None
-    assert set(pmpx.parallel.__all__) - {"ShardedNNPosterior"} <= set(
-        tpar.__all__)
+    assert set(pmpx.parallel.__all__) <= set(tpar.__all__)
     assert pmpx_torch.SamplerSpec is pmpx_torch.config.SamplerSpec
     assert pmpx_torch.MPConfig is pmpx_torch.samplers.mp.MPConfig
 
