@@ -99,7 +99,9 @@ Phases, each printing its wall time:
    binary P = 1024): 14a. a one-rank NCCL mesh in this process,
    ``run_chains_sharded`` of 8 chains, ``ShardedLinReg`` over the whole
    data, the tree superstep and the meshed farm (8 chains of binary P =
-   512) each bit-equal to its unsharded counterpart; 14b. four gloo ranks
+   512) each bit-equal to its unsharded counterpart, and the
+   ``ShardedLinReg`` and tree supersteps' chains, declared eager, run as
+   the loop and bit-equal to the plain captured chain; 14b. four gloo ranks
    that share the card (child processes, joined with a timeout): data = 4
    and tree = 4 against the sweep and the plain superstep, chains = 4 x 2
    chains bit-equal to each block run alone, the farm over 4 ranks
@@ -122,6 +124,20 @@ Phases, each printing its wall time:
    the sharded LeNet; each rank prints its device, collectives by route,
    peak GiB and ms per ``value_and_grad_batch``.  No hand kernel runs on
    this path (its launches are checked to be none).  No scaling figure.
+16. the compiled chain: ``run_chain`` replays a captured CUDA graph of
+   ``unroll`` supersteps on the card (every chain of phases 4-15 runs so,
+   apart from the supersteps declared eager), held here to its plain
+   version ``run_chain_eager`` on the benchmark cell (n = 100,000): 16a.
+   PMP binary P = 1024, flat MP N = 7 and the 7 x 3 general tree, unroll
+   1 and 3 (with a tail), records, final state and generator state bit
+   for bit and one ``linreg_rss`` launch a superstep counted per replay;
+   16b. ``resume_chain`` in 4 chunks (one graph) bit-equal to the eager
+   chain and its checkpoint's generator state; 16c. the sweep's µs per
+   superstep captured and eager (CUDA events, alternating), and a
+   profiler trace of each (kernels and device busy µs a superstep, idle
+   share); 16d. the MNIST-LSTM MH chain through ``lstm_fused`` at full
+   batch, captured against eager (bit for bit, µs and kernels a
+   superstep); and which supersteps of the whole run went eager, and why.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -353,6 +369,7 @@ NNPERF_ITERS, FOOTPRINT_P, BF16_ITERS, TRACE_STEPS = 3, 2, 8, 2
 # sd of least squares after P14_DATA_BURN
 P14_CHAINS, P14_STEPS = 8, 30
 P14_WORLD, P14_JOIN_S = 4, 300
+P14_EAGER = 5  # 14a: supersteps of each declared-eager chain
 P14_RTOL = 1e-5
 P14_DATA_STEPS, P14_DATA_BURN = 1000, 300
 
@@ -377,6 +394,25 @@ P15_WORLD, P15_JOIN_S = 4, 300
 P15_VAL_RTOL, P15_VAL_ATOL = 2e-5, 1e-6
 P15_GRAD_RTOL, P15_GRAD_ATOL = 5e-3, 1e-5
 P15_HMC_TOL = 1e-5
+
+# phase 16: the compiled chain on the benchmark cell (n = 100,000, temper
+# 1e-3, step 0.02, all_first): run_chain's captured CUDA graph against
+# run_chain_eager, bit for bit, for PMP binary depth 10 (P = 1024), flat
+# MP N = 7 and the 7 x 3 general tree over P16_STEPS supersteps (unroll 1,
+# and P16_UNROLL with a tail), and a resume in P16_CHUNKS chunks; the
+# sweep's us per superstep both ways over bench.SWEEP_ITERS supersteps,
+# each timed P16_REPS times, alternating; and a profiler trace of
+# P16_TRACE supersteps of each (kernels a superstep, idle share)
+P16_STEPS, P16_UNROLL, P16_CHUNKS = 40, 3, 4
+P16_REPS, P16_TRACE = 2, 50
+# 16d: the MNIST-LSTM MH chain through lstm_fused (60,000 stand-ins)
+P16_LSTM_STEPS, P16_LSTM_TRACE = 200, 20
+# and the peak memory of P16_FC_STEPS full-batch MNIST-FC PMP supersteps
+# (P = 8 networks over the 60,000 stand-ins), eager and captured
+P16_FC_STEPS = 3
+# the supersteps of this run that run_chain keeps eager: label -> the
+# reason eager_reason gives (phases 14a and 15a fill it, 16 prints it)
+EAGER: dict = {}
 
 # phase 6's P sweeps on the benchmark cell's data: one SWEEP_STEPS-superstep
 # launch per (N, depth), each timed over SWEEP_REPS, emit="all" up to its
@@ -878,7 +914,7 @@ def phase12(dev, name: str, smi: str, bench) -> dict:
     from pmpx_torch.kernels import launches, reset_launches
     from pmpx_torch.metrics.recorder import load_trace, reference_style_name
     from pmpx_torch.models import MnistLSTM
-    from pmpx_torch.samplers.base import run_chain
+    from pmpx_torch.samplers.base import compile_chain
     from pmpx_torch.targets.linreg import BayesLinReg
     from pmpx_torch.targets.nn import NNPosterior
     from pmpx_torch.data import load_mnist
@@ -903,13 +939,16 @@ def phase12(dev, name: str, smi: str, bench) -> dict:
     tgt = BayesLinReg(et.x, et.y, temper=et.temper, method="sweep",
                       device=dev)
     for label, spec, steps in HMC_LINREG:
-        sup = SamplerSpec(**spec).build(tgt)
         gen = torch.Generator(device=dev)
         gen.manual_seed(12)
         theta0 = torch.tensor([0.0, 0.0, 1.0], device=dev)
+        chain = compile_chain(SamplerSpec(**spec).build(tgt), gen, theta0,
+                              lambda th, o: th)
         with torch.no_grad():
-            (_, tr), counts, wall = counted(label, lambda: run_chain(
-                sup, gen, theta0, steps, collect=lambda th, o: th))
+            # the capture, outside the clock, from a generator of its own
+            chain.run(torch.Generator(device=dev), theta0, 1)
+            (_, tr), counts, wall = counted(
+                label, lambda: chain.run(gen, theta0, steps))
         calls = hmc_density_calls(spec)
         require(counts == {"linreg_rss": calls * steps},
                 f"12a {label}: one linreg_rss launch a density call: "
@@ -1062,7 +1101,7 @@ def phase13(dev, name: str, smi: str) -> dict:
     from pmpx_torch.kernels import cnn_fast, launches, reset_launches
     from pmpx_torch.metrics.recorder import load_trace, reference_style_name
     from pmpx_torch.models import LeNet, MnistCNN, PackedLeNet
-    from pmpx_torch.samplers.base import run_chain
+    from pmpx_torch.samplers.base import compile_chain
     from pmpx_torch.targets.nn import NNPosterior
 
     p13 = {}
@@ -1224,23 +1263,29 @@ def phase13(dev, name: str, smi: str) -> dict:
         g.manual_seed(1)
         theta = post.init_theta()
         with torch.no_grad():
-            run_chain(sup, g, theta, 1)
+            # the first run, the capture, outside the trace
+            chain = compile_chain(sup, g, theta)
+            chain.run(g, theta, 1)
             torch.cuda.synchronize()
             with profiling.trace(f"{tmp}/trace"):
                 t0 = time.perf_counter()
-                run_chain(sup, g, theta, TRACE_STEPS)
+                chain.run(g, theta, TRACE_STEPS)
                 torch.cuda.synchronize()
                 window_us = (time.perf_counter() - t0) * 1e6
+            del chain  # its graphs and their pool
         kern = profiling.device_time_us(f"{tmp}/trace")
-        # the same supersteps with deterministic algorithms off
+        # the same supersteps with deterministic algorithms off, captured
+        # anew (a graph replays the kernels chosen at its capture)
         torch.use_deterministic_algorithms(False)
         with torch.no_grad():
-            run_chain(sup, g, theta, 1)
+            chain = compile_chain(sup, g, theta)
+            chain.run(g, theta, 1)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run_chain(sup, g, theta, TRACE_STEPS)
+            chain.run(g, theta, TRACE_STEPS)
             torch.cuda.synchronize()
             free_us = (time.perf_counter() - t0) * 1e6
+            del chain
         torch.use_deterministic_algorithms(True, warn_only=True)
         conv = {k: v for k, v in kern.items() if re.search(
             r"conv|fprop|dgrad|wgrad|cudnn", k, re.I)}
@@ -1472,6 +1517,24 @@ def phase14(dev, name: str, smi: str, bench) -> dict:
     plain = sup(None, th0, eps=inp["eps"], u=inp["u"])
     require(same(got, plain), "14a: the tree superstep (T = 1) == the "
             "plain superstep on injected noise, bit for bit")
+    # the supersteps with collectives are declared eager: run_chain runs
+    # them as the loop, bit-equal to the plain superstep's captured chain
+    from pmpx_torch.samplers.base import eager_reason, run_chain
+    for label, s in (("ShardedLinReg", pmp.make_superstep(sh, cfg)),
+                     ("tree superstep", tsup)):
+        why = EAGER[label] = eager_reason(s, th0)
+        require(why is not None, f"14a: the {label} is declared eager")
+        gens = par.chain_generators(141, 2, dev)
+        gens[1].set_state(gens[0].get_state())
+        got, counts = counted(lambda: run_chain(s, gens[0], th0, P14_EAGER,
+                                                collect=_roots))
+        require(counts == {"linreg_rss": P14_EAGER}, f"14a: the {label}'s "
+                f"chain, one launch a superstep: {counts}")
+        require(same(got, run_chain(sup, gens[1], th0, P14_EAGER,
+                                    collect=_roots)),
+                f"14a: the {label}'s eager chain == the plain superstep's "
+                "captured chain, bit for bit")
+        print(f"14a: the {label} ran eager ({why}), bit-equal")
     farm_cfg = inp["farm_cfg"]
     farm = par.make_chain_farm_fused(target, farm_cfg, FARM_STEPS, mesh,
                                      chunk=FARM_STEPS)
@@ -1715,6 +1778,7 @@ def phase15(dev, name: str, smi: str) -> dict:
     from pmpx_torch.kernels import launches, reset_launches
     from pmpx_torch.models import BayesMLP, LeNet
     from pmpx_torch.parallel import mesh as pm
+    from pmpx_torch.samplers.base import eager_reason
     from pmpx_torch.targets.nn import NNPosterior
 
     def vg_ms(fn):
@@ -1771,6 +1835,11 @@ def phase15(dev, name: str, smi: str) -> dict:
                 refs[label] = (tv.cpu(), tg.cpu())
             if label == "nhwc":
                 spec = inp["spec"]
+                # its density all-reduces: run_chain keeps it eager
+                why = EAGER["ShardedNNPosterior sp_hmc"] = eager_reason(
+                    spec.build(s), inp["theta0"])
+                require(why is not None, "15a: SP-HMC over the sharded "
+                        "LeNet is declared eager")
                 a = spec.build(s)(_p15_gen(dev, 152), inp["theta0"])
                 b = spec.build(post)(_p15_gen(dev, 152), inp["theta0"])
                 hmc_gap = float((a[0] - b[0]).abs().max())
@@ -1882,6 +1951,245 @@ def phase15(dev, name: str, smi: str) -> dict:
     return p15
 
 
+def phase16(dev, name: str, smi: str, bench) -> dict:
+    """The compiled chain: run_chain (a replayed CUDA graph) against its
+    plain version, the eager loop, on the benchmark cell.  Returns the
+    phase's launches of the captured runs, by kernel."""
+    from pmpx_torch import checkpoint as ck
+    from pmpx_torch.kernels import launches, reset_launches
+    from pmpx_torch.samplers import base, pmp
+
+    target = bench.bench_target(dev)
+    th0 = bench.theta0(dev)
+    cfgs = {
+        "pmp_binary_P1024": bench.bench_config(),
+        "mp_N7": pmp.PMPConfig(N=7, depth=1, step_size=0.02,
+                               selection="all_first"),
+        "general_7x3": pmp.PMPConfig(N=7, depth=3, step_size=0.02,
+                                     selection="all_first"),
+    }
+    phase_counts: dict = {}
+
+    def collect(th, o):
+        return th, o["root_index"], o["root_logp"]
+
+    def same(a, b) -> bool:
+        la, lb = base._leaves(a), base._leaves(b)
+        return len(la) == len(lb) and all(
+            x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+            for x, y in zip(la, lb))
+
+    def pair(seed):
+        gs = []
+        for _ in range(2):
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            gs.append(g)
+        return gs
+
+    with torch.no_grad():
+        # 16a: captured == eager, bit for bit
+        for label, cfg in cfgs.items():
+            for unroll in (1, P16_UNROLL):
+                sup = pmp.make_superstep(target, cfg)
+                ga, gb = pair(16)
+                reset_launches()
+                want = base.run_chain_eager(sup, ga, th0, P16_STEPS,
+                                            collect=collect)
+                eager_counts = dict(launches)
+                reset_launches()
+                got = base.run_chain(sup, gb, th0, P16_STEPS,
+                                     collect=collect, unroll=unroll)
+                torch.cuda.synchronize()
+                counts = dict(launches)
+                for k, v in counts.items():
+                    phase_counts[k] = phase_counts.get(k, 0) + v
+                print(f"16a {label} unroll {unroll}: launches captured "
+                      f"{ {k: v for k, v in counts.items() if v} }, eager "
+                      f"{ {k: v for k, v in eager_counts.items() if v} }")
+                require(same(want, got), f"16a {label} unroll {unroll}: "
+                        "records and final state bit-equal")
+                require(torch.equal(ga.get_state(), gb.get_state()),
+                        f"16a {label} unroll {unroll}: generator state")
+                require(counts == eager_counts
+                        and counts["linreg_rss"] == P16_STEPS,
+                        f"16a {label}: one linreg_rss launch a superstep, "
+                        "counted per replay")
+        # 16b: a resume in P16_CHUNKS chunks == one captured run == eager
+        sup = pmp.make_superstep(target, cfgs["general_7x3"])
+        ga, gb = pair(17)
+        want = base.run_chain_eager(sup, ga, th0, P16_STEPS,
+                                    collect=lambda th, o: th)
+        captures = []
+        capture = base.CompiledChain._capture
+
+        def spy(chain, steps):
+            captures.append(steps)
+            return capture(chain, steps)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/c.ckpt"
+            ck.save_checkpoint(path, th0, gb, 0)
+            reset_launches()
+            base.CompiledChain._capture = spy
+            try:
+                thR, chunks = ck.resume_chain(
+                    sup, path, P16_STEPS, collect=lambda th, o: th,
+                    checkpoint_every=P16_STEPS // P16_CHUNKS)
+            finally:
+                base.CompiledChain._capture = capture
+            counts = dict(launches)
+            _, gR, stepR, _ = ck.load_checkpoint(path)
+        for k, v in counts.items():
+            phase_counts[k] = phase_counts.get(k, 0) + v
+        require(len(chunks) == P16_CHUNKS and torch.equal(thR, want[0])
+                and np.array_equal(np.concatenate(chunks),
+                                   want[1].cpu().numpy()),
+                "16b resumed chunks bit-equal to the eager chain")
+        require(stepR == P16_STEPS
+                and torch.equal(gR.get_state(), ga.get_state()),
+                "16b the checkpoint's generator state")
+        require(captures == [1], f"16b one capture across the chunks "
+                f"(graphs of {captures} supersteps)")
+        print(f"16b resume in {P16_CHUNKS} chunks of "
+              f"{P16_STEPS // P16_CHUNKS}: bit-equal; launches {counts}")
+
+        # 16c: the sweep's us per superstep, eager and captured
+        sup = pmp.make_superstep(target, cfgs["pmp_binary_P1024"])
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        chain = base.compile_chain(sup, g, th0, bench._theta)
+        runs = {"eager": lambda n: base.run_chain_eager(
+                    sup, g, th0, n, collect=bench._theta),
+                "captured": lambda n: chain.run(g, th0, n)}
+        for fn in runs.values():  # warm-up: the capture, outside the clock
+            fn(20)
+        graphs = dict(chain.chunks)
+        times = {k: [] for k in runs}
+        for rep in range(P16_REPS):
+            order = ("eager", "captured") if rep % 2 == 0 else (
+                "captured", "eager")
+            for k in order:
+                ms = event_ms(lambda f=runs[k]: f(bench.SWEEP_ITERS), 1,
+                              warmup=False)
+                times[k].append(ms * 1e3 / bench.SWEEP_ITERS)
+        profiles = {}
+        for k, f in runs.items():
+            prof = bench.profile_path(lambda f=f: f(P16_TRACE))
+            prof["kernels_per_superstep"] = prof["kernels"] / P16_TRACE
+            prof["busy_us_per_superstep"] = (prof["device_busy_us"]
+                                             / P16_TRACE)
+            prof["supersteps"] = P16_TRACE
+            profiles[k] = prof
+            print(json.dumps({"profile": f"sweep_{k}", **prof}))
+        require(chain.chunks == graphs, "16c the timed and traced runs "
+                "only replayed (no capture after the warm-up)")
+    require(profiles["captured"]["idle_share"]
+            < profiles["eager"]["idle_share"],
+            "16c the captured sweep leaves the card idle less")
+
+    # 16d: a device-bound NN cell, the MNIST-LSTM MH chain through
+    # lstm_fused at full batch, captured against eager
+    from pmpx_torch.data import load_mnist
+    from pmpx_torch.experiments import mnist as mnist_mod
+    from pmpx_torch.kernels import lstm_fused as lf
+    from pmpx_torch.models import MnistLSTM
+    from pmpx_torch.targets.nn import NNPosterior
+
+    x_tr, y_tr, _, _ = load_mnist(60_000, 10_000, device=dev)
+    post = NNPosterior(MnistLSTM(), x_tr, y_tr, temper=10.0, device=dev)
+    lf.attach(post)
+    sup = mnist_mod.sampler_spec("mh", 1e-4, 7).build(post)
+    th_l = post.init_theta()
+    lstm = {}
+
+    def collect_mh(th, o):
+        return th, o["accepted"], o["root_logp"]
+
+    def peak_gib(fn):
+        """fn()'s result, and the peak device memory (allocated, and
+        reserved by the caching allocator, graph pools included) it took
+        above what was allocated when it started, in GiB."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {
+            "allocated": (torch.cuda.max_memory_allocated() - start) / 2**30,
+            "reserved": (torch.cuda.max_memory_reserved() - start) / 2**30}
+
+    with torch.no_grad():
+        ga, gb = pair(18)
+        want, peak_eager = peak_gib(lambda: base.run_chain_eager(
+            sup, ga, th_l, P16_LSTM_STEPS, collect=collect_mh))
+        reset_launches()
+        got, peak_captured = peak_gib(lambda: base.run_chain(
+            sup, gb, th_l, P16_LSTM_STEPS, collect=collect_mh))
+        lstm["peak_gib"] = {"eager": peak_eager, "captured": peak_captured}
+        counts = {k: v for k, v in launches.items() if v}
+        for k, v in counts.items():
+            phase_counts[k] = phase_counts.get(k, 0) + v
+        require(same(want, got)
+                and torch.equal(ga.get_state(), gb.get_state()),
+                "16d the MNIST-LSTM MH chain, captured == eager")
+        require(counts == {"lstm_fused": P16_LSTM_STEPS},
+                f"16d one lstm_fused launch a superstep: {counts}")
+        chain = base.compile_chain(sup, g, th_l, collect_mh)
+        runs = {"eager": lambda n: base.run_chain_eager(
+                    sup, g, th_l, n, collect=collect_mh),
+                "captured": lambda n: chain.run(g, th_l, n)}
+        for k, f in runs.items():
+            f(1)  # warm-up: the capture, outside the clock
+            lstm[k] = event_ms(lambda f=f: f(P16_LSTM_STEPS), 1,
+                               warmup=False) * 1e3 / P16_LSTM_STEPS
+            prof = bench.profile_path(lambda f=f: f(P16_LSTM_TRACE))
+            lstm[f"{k}_kernels_per_superstep"] = (prof["kernels"]
+                                                  / P16_LSTM_TRACE)
+            lstm[f"{k}_busy_us_per_superstep"] = (prof["device_busy_us"]
+                                                  / P16_LSTM_TRACE)
+            lstm[f"{k}_top"] = prof["top"][:3]
+    del post, sup, chain, runs
+    from pmpx_torch.models import MnistMLP
+
+    post = NNPosterior(MnistMLP(), x_tr, y_tr, temper=10.0, device=dev)
+    sup = mnist_mod.sampler_spec("pmp", 1e-4, 7).build(post)
+    th_f = post.init_theta()
+    with torch.no_grad():
+        ga, gb = pair(19)
+        _, fc_eager = peak_gib(lambda: base.run_chain_eager(
+            sup, ga, th_f, P16_FC_STEPS, collect=bench._theta))
+        (fin, tr), fc_captured = peak_gib(lambda: base.run_chain(
+            sup, gb, th_f, P16_FC_STEPS, collect=bench._theta))
+    require(tr.shape == (P16_FC_STEPS, *th_f.shape)
+            and bool(torch.isfinite(tr).all()),
+            "16d the captured MNIST-FC PMP chain: finite states")
+    lstm["fc_pmp_peak_gib"] = {"eager": fc_eager, "captured": fc_captured,
+                               "supersteps": P16_FC_STEPS}
+    del post, sup, x_tr, y_tr, fin, tr
+    print(json.dumps({"compiled_chain": "mnist_lstm_mh_kernel",
+                      "supersteps": P16_LSTM_STEPS, "us_per_superstep": lstm,
+                      "device": name, "power": smi}))
+    print(json.dumps({
+        "compiled_chain": "pmp_p1024_n100k",
+        "sweep_us_per_superstep": times,
+        "kernels_per_superstep": {
+            k: p["kernels_per_superstep"] for k, p in profiles.items()},
+        "busy_us_per_superstep": {
+            k: p["busy_us_per_superstep"] for k, p in profiles.items()},
+        # the trace's own (its tracing slows each replayed kernel's
+        # launch), and the device busy µs over the CUDA-event µs
+        "idle_share_traced": {
+            k: p["idle_share"] for k, p in profiles.items()},
+        "idle_share_timed": {
+            k: 1.0 - p["busy_us_per_superstep"] / min(times[k])
+            for k, p in profiles.items()},
+        "eager": EAGER,
+        "device": name, "power": smi}))
+    return phase_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1902,7 +2210,7 @@ def main() -> int:
     from pmpx_torch.kernels import lstm_fused as lf
     from pmpx_torch.metrics.recorder import load_trace, reference_style_name
     from pmpx_torch.models import MnistLSTM, MnistMLP
-    from pmpx_torch.samplers.base import run_chain
+    from pmpx_torch.samplers.base import compile_chain
     from pmpx_torch.targets.nn import NNPosterior
     from pmpx_torch.parallel import chains as farm_mod
     from pmpx_torch.kernels import launches, reset_launches
@@ -2724,13 +3032,14 @@ def main() -> int:
                 gen = torch.Generator(device=dev)
                 gen.manual_seed(1)
                 with torch.no_grad():
-                    chain = lambda s=sup, th=th: run_chain(  # noqa: E731
-                        s, gen, th, MNIST_PROFILE, collect=lambda a, o: a)
-                    chain()
-                    prof = bench.profile_path(chain)
+                    chain = compile_chain(sup, gen, th, lambda a, o: a)
+                    chain.run(gen, th, MNIST_PROFILE)  # and the capture
+                    prof = bench.profile_path(
+                        lambda c=chain, th=th: c.run(gen, th, MNIST_PROFILE))
                 print(json.dumps({"profile": f"mnist_{label}",
                                   "supersteps": MNIST_PROFILE, **prof}))
-            del tgt, fc_t
+            # a chain's graphs hold a full-batch superstep's memory
+            del tgt, fc_t, sup, chain
             for model, algo, steps in MNIST_CELLS:
                 label = f"{model}_{algo}"
                 kernel = model == "LSTM"
@@ -2937,6 +3246,12 @@ def main() -> int:
         for k in kernels:
             if k["name"] in p15:
                 k["launches"] += p15[k["name"]]
+
+    with Phase("16 the compiled chain"):
+        p16 = phase16(dev, name, smi, bench)
+        for k in kernels:
+            if k["name"] in p16:
+                k["launches"] += p16[k["name"]]
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

@@ -35,7 +35,7 @@ from pmpx_torch._device import resolve_device
 from pmpx_torch.kernels import fused_chain as fc
 from pmpx_torch.kernels.linreg import batched_rss, kernel_info, pad_proposals
 from pmpx_torch.samplers import pmp
-from pmpx_torch.samplers.base import run_chain
+from pmpx_torch.samplers.base import compile_chain
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
 
 __all__ = [
@@ -92,21 +92,26 @@ def _elapsed_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def _theta(theta, out):
+    return theta
+
+
 def time_sweep(target, cfg, *, before_timed=None):
-    """The sweep path: ``run_chain`` over ``make_superstep``, 20 supersteps
-    of warm-up, then ``SWEEP_ITERS`` timed.  Returns ``(us_per_iter,
-    trace (SWEEP_ITERS, 3))``.  ``before_timed()`` runs just before the
-    timed run."""
+    """The sweep path: ``run_chain`` over ``make_superstep`` as one
+    compiled chain, 20 supersteps of warm-up (the capture), then
+    ``SWEEP_ITERS`` timed (replays only).  Returns ``(us_per_iter, trace
+    (SWEEP_ITERS, 3))``.  ``before_timed()`` runs just before the timed
+    run."""
     superstep = pmp.make_superstep(target, cfg)
     gen = torch.Generator(device=target.device)
     gen.manual_seed(1)
     th0 = theta0(target.device)
-    run_chain(superstep, gen, th0, 20, collect=lambda t, o: t)
+    chain = compile_chain(superstep, gen, th0, _theta)
+    chain.run(gen, th0, 20)
     torch.cuda.synchronize()
     if before_timed is not None:
         before_timed()
-    (_, trace), ms = _elapsed_ms(lambda: run_chain(
-        superstep, gen, th0, SWEEP_ITERS, collect=lambda t, o: t))
+    (_, trace), ms = _elapsed_ms(lambda: chain.run(gen, th0, SWEEP_ITERS))
     return ms * 1e3 / SWEEP_ITERS, trace
 
 
@@ -355,11 +360,11 @@ def main(argv=None):
                 N=7, depth=3, step_size=0.02, selection="all_first")}
         paths = []
         for tag, c in cfgs.items():
-            sup = pmp.make_superstep(target, c)
+            chain = compile_chain(pmp.make_superstep(target, c), gen, th0,
+                                  _theta)
             run = fc.make_fused_chain(target, c, chunk=FUSED_CHUNK)
             paths += [
-                (f"sweep{tag}", lambda s=sup: run_chain(
-                    s, gen, th0, 20, collect=lambda t, o: t), 20),
+                (f"sweep{tag}", lambda ch=chain: ch.run(gen, th0, 20), 20),
                 (f"fused{tag}", lambda r=run: r(gen, th0, FUSED_CHUNK),
                  FUSED_CHUNK),
             ]

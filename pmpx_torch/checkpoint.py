@@ -32,7 +32,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from pmpx_torch.samplers.base import run_chain
+from pmpx_torch.samplers.base import compile_chain
 
 __all__ = [
     "adopt_prefix_run",
@@ -285,8 +285,10 @@ def resume_chain(
 ):
     """Run a chain to ``total_steps`` from the checkpoint at ``path``.
 
-    Each chunk of ``checkpoint_every`` supersteps is one :func:`run_chain`
-    from the checkpoint's theta and generator; its records go to the host
+    Each chunk of ``checkpoint_every`` supersteps is one run of one
+    compiled chain (:func:`~pmpx_torch.samplers.base.compile_chain`: the
+    first chunk captures, the others only replay), from the checkpoint's
+    theta and generator; its records go to the host
     as NumPy arrays, ``on_chunk(start_step, recs)`` is called with them
     *before* the new checkpoint is written (a crash between the two at
     worst re-runs one chunk, whose records overwrite identically), and the
@@ -302,9 +304,10 @@ def resume_chain(
     theta, gen, step, _ = load_checkpoint(path)
     chunk = checkpoint_every or max(total_steps - step, 1)
     recs_all = []
+    chain = compile_chain(superstep, gen, theta, collect)
     while step < total_steps:
         n = min(chunk, total_steps - step)
-        theta, recs = run_chain(superstep, gen, theta, n, collect=collect)
+        theta, recs = chain.run(gen, theta, n)
         recs = _to_numpy(recs)
         recs_all.append(recs)
         if on_chunk is not None:

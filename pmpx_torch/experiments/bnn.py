@@ -91,10 +91,15 @@ def run(
     superstep = spec.build(target)
 
     # the reference records loss, accuracy and the first 10 parameters
-    # (main.py:169-171, 187-190), each evaluation on fixed noise
+    # (main.py:169-171, 187-190), each evaluation on fixed noise: drawn
+    # once here, as a generator seeded inside the step would draw it (a
+    # captured step replays only the draws of the chain's generator)
+    loss_noise = target.draw_noise(_fixed(dev, 123))
+    acc_noise = target.draw_noise(_fixed(dev, 124))
+
     def collect(theta, out):
-        loss = -target.log_prob(theta, generator=_fixed(dev, 123))
-        acc = target.accuracy(theta, generator=_fixed(dev, 124))
+        loss = -target.log_prob(theta, noise=loss_noise)
+        acc = target.accuracy(theta, noise=acc_noise)
         return loss, acc, theta[:10]
 
     meta = {"N": N, "algo": algo, "num_steps": num_steps}

@@ -25,7 +25,7 @@ from pmpx_torch._device import resolve_device
 from pmpx_torch.config import SamplerSpec
 from pmpx_torch.experiments._common import device_name, seeded, sync
 from pmpx_torch.metrics.recorder import save_trace
-from pmpx_torch.samplers.base import run_chain
+from pmpx_torch.samplers.base import compile_chain
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
 
 
@@ -81,15 +81,14 @@ def run(
     }
     traces, out = {}, {}
     for name in algos:
-        superstep = specs[name].build(target)
+        # the chain state per iteration, from one compiled chain
+        compiled = compile_chain(specs[name].build(target), seeded(seed, dev),
+                                 theta0, lambda th, o: th)
 
-        def chain(s=superstep):
-            return run_chain(
-                s, seeded(seed + 1, dev), theta0, num_steps,
-                collect=lambda th, o: th,  # the chain state per iteration
-            )[1]
+        def chain(c=compiled):
+            return c.run(seeded(seed + 1, dev), theta0, num_steps)[1]
 
-        chain()  # warm-up
+        chain()  # warm-up (the capture)
         sync(dev)
         t0 = time.perf_counter()
         roots = chain()

@@ -23,7 +23,7 @@ from pmpx_torch._device import resolve_device
 from pmpx_torch.config import SamplerSpec
 from pmpx_torch.experiments._common import as_tuple, sync
 from pmpx_torch.metrics.recorder import save_trace
-from pmpx_torch.samplers.base import run_chain
+from pmpx_torch.samplers.base import compile_chain
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
 
 TRUE = np.array([-1.0, 2.0, 0.5])
@@ -82,10 +82,12 @@ def run(
             chunk_iters = call_steps
         else:
             chunk_iters = chunk
-            superstep = spec.build(target)
+            # one compiled chain: the warm-up call below captures it
+            chain = compile_chain(spec.build(target), g, theta0,
+                                  lambda th, o: th)
 
-            def f(gen, t, s=superstep):
-                return run_chain(s, gen, t, chunk, collect=lambda th, o: th)
+            def f(gen, t, c=chain):
+                return c.run(gen, t, chunk)
 
         theta = theta0
         gen = torch.Generator(device=dev)

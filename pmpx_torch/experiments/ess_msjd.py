@@ -27,7 +27,7 @@ from pmpx_torch.experiments._common import as_tuple, seeded, sync
 from pmpx_torch.experiments.plots import render_ess_msjd
 from pmpx_torch.metrics import ess, ess_chunked, ess_per_dim, msjd
 from pmpx_torch.metrics.recorder import save_trace
-from pmpx_torch.samplers.base import run_chain
+from pmpx_torch.samplers.base import compile_chain
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
 
 def ess_target(n_data: int, seed: int = 0, method: str = "fused",
@@ -46,16 +46,17 @@ def _emit_all_cell(
 ):
     """One emit-all protocol cell on the superstep path: returns
     (root_ess, root_msjd_sum, all_ess, all_msjd_sum, wall_s)."""
-    superstep = spec.build(target)
     dev = theta0.device
+    # one compiled chain for every chunk
+    chain = compile_chain(spec.build(target), seeded(seed, dev), theta0,
+                          lambda th, o: o["samples"])
 
     # Only the (n, P) beta0 columns cross to the host; the MSJD over the
     # flattened emitted stream (all coordinates) is reduced on the device
     # per chunk: the squared jumps inside the chunk, and the chunk's first
     # and last emitted states for the jumps across chunks.
     def runner(gen, t, start, n):
-        theta2, samples_all = run_chain(
-            superstep, gen, t, n, collect=lambda th, o: o["samples"])
+        theta2, samples_all = chain.run(gen, t, n)
         flat = samples_all.reshape(-1, samples_all.shape[-1])
         d = flat[1:] - flat[:-1]
         # keep only post-burn-in jumps: stream element i jumps to i + 1,
@@ -317,12 +318,12 @@ def run(
                     def f(s=seed, runk=runk):
                         return runk(seeded(s, dev), theta0, num_steps)
             else:
-                superstep = spec.build(target)
+                chain = compile_chain(spec.build(target), seeded(seed, dev),
+                                      theta0, lambda th, o: th)
 
-                def f(s=seed, superstep=superstep):
-                    return run_chain(superstep, seeded(s, dev), theta0,
-                                     num_steps, collect=lambda th, o: th)[1]
-            f()  # warm-up
+                def f(s=seed, chain=chain):
+                    return chain.run(seeded(s, dev), theta0, num_steps)[1]
+            f()  # warm-up (on the superstep path, the capture)
             sync(dev)
             t0 = time.perf_counter()
             roots = f()

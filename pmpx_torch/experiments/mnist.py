@@ -33,7 +33,7 @@ from pmpx_torch.config import SamplerSpec
 from pmpx_torch.data import load_mnist
 from pmpx_torch.metrics.recorder import reference_style_name, save_trace
 from pmpx_torch.models import MnistCNN, MnistLSTM, MnistMLP, PackedMnistCNN
-from pmpx_torch.samplers.base import run_chain
+from pmpx_torch.samplers.base import compile_chain
 from pmpx_torch.targets.nn import NNPosterior
 
 # the model for a layout: only the CNN has another ("packed"), as in pmpx
@@ -79,18 +79,18 @@ def pretrain(target: NNPosterior, steps: int, lr: float = 1e-3):
 
 
 def _timed_chain(superstep, gen, theta0, num_steps, collect, dev):
-    """The chain, its first superstep a warm-up outside the timed window.
-    Returns (final state, per-step records, us per timed superstep or
-    None): CUDA events on a card, nothing elsewhere."""
-    theta, first = run_chain(superstep, gen, theta0, 1, collect=collect)
+    """The chain, its first superstep (and the capture) a warm-up outside
+    the timed window.  Returns (final state, per-step records, us per
+    timed superstep or None): CUDA events on a card, nothing elsewhere."""
+    chain = compile_chain(superstep, gen, theta0, collect)
+    theta, first = chain.run(gen, theta0, 1)
     if num_steps == 1:
         return theta, first, None
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-    theta, rest = run_chain(superstep, gen, theta, num_steps - 1,
-                            collect=collect)
+    theta, rest = chain.run(gen, theta, num_steps - 1)
     us = None
     if dev.type == "cuda":
         end.record()

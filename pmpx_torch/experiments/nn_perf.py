@@ -46,7 +46,7 @@ from pmpx_torch.experiments.mnist import pretrain
 from pmpx_torch.experiments.mnist import sampler_spec as _mnist_spec
 from pmpx_torch.models import LeNet, PackedLeNet
 from pmpx_torch.profiling import superstep_timer
-from pmpx_torch.samplers.base import run_chain
+from pmpx_torch.samplers.base import compile_chain
 from pmpx_torch.targets.nn import NNPosterior
 
 
@@ -161,16 +161,17 @@ def footprint(P: int = 8, n_train: int = 50000, class_sep: float = 1.5,
 
 def _time_cell(target, spec: SamplerSpec, iters: int) -> float:
     """µs per superstep of an ``iters``-superstep chain from the
-    target's initial theta (a warm-up chain first)."""
-    superstep = spec.build(target)
+    target's initial theta (a warm-up chain first: the capture)."""
     gen = torch.Generator(device=target.device)
     gen.manual_seed(1)
+    theta0 = target.init_theta()
+    chain = compile_chain(spec.build(target), gen, theta0)
 
     def run(theta):
         with torch.no_grad():
-            return run_chain(superstep, gen, theta, iters)[0]
+            return chain.run(gen, theta, iters)[0]
 
-    return superstep_timer(run, target.init_theta(), iters=iters)
+    return superstep_timer(run, theta0, iters=iters)
 
 
 def table(
@@ -414,11 +415,11 @@ def bf16_chain(
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + 1)
+        chain = compile_chain(superstep, gen, theta0, collect)
         theta, loss_parts, mv_parts = theta0, [], []
         with torch.no_grad():
             for ci in range(num_steps // chunk):
-                theta, (lo, mv) = run_chain(superstep, gen, theta, chunk,
-                                            collect=collect)
+                theta, (lo, mv) = chain.run(gen, theta, chunk)
                 loss_parts.append(lo.cpu().numpy())
                 mv_parts.append(mv.cpu().numpy())
                 # a heartbeat a chunk, for a watcher of the out dir

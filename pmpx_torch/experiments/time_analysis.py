@@ -28,7 +28,7 @@ from pmpx_torch.config import SamplerSpec
 from pmpx_torch.experiments._common import as_tuple, device_name, seeded, sync
 from pmpx_torch.kernels import fused_chain as fc
 from pmpx_torch.metrics.recorder import save_trace
-from pmpx_torch.samplers.base import run_chain
+from pmpx_torch.samplers.base import compile_chain
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
 
 # The reference implementation's A100 numbers (README.md:41-48), not a run
@@ -69,11 +69,12 @@ def _time_cell(target, spec, theta0, iters, fused_chain):
         def f(g):
             return runk(g, theta0, iters)
     else:
-        superstep = spec.build(target)
+        # one compiled chain: the warm-up call below captures it
+        chain = compile_chain(spec.build(target), seeded(1, dev), theta0,
+                              lambda th, o: o["root_index"])
 
         def f(g):
-            return run_chain(superstep, g, theta0, iters,
-                             collect=lambda th, o: o["root_index"])[1]
+            return chain.run(g, theta0, iters)[1]
     f(seeded(1, dev))
     sync(dev)
     best = float("inf")

@@ -35,6 +35,9 @@ class ShardedLinReg:
     """
 
     d = 3
+    # run_chain keeps its supersteps eager: the sum is a collective (on
+    # gloo a copy through the host), which no CUDA graph of one rank holds
+    eager_only = "its density all-reduces over the data axis"
 
     def __init__(self, x_local, y_local, n_total: int, temper: float = 1.0,
                  axis: str = AXIS_DATA, method: str = "sweep", *, mesh):

@@ -61,6 +61,10 @@ class ShardedNNPosterior:
     does.
     """
 
+    # run_chain keeps its supersteps eager: the sum is a collective (on
+    # gloo a copy through the host), which no CUDA graph of one rank holds
+    eager_only = "its density all-reduces over the data axis"
+
     # the template's machinery, on the same attributes
     unravel = NNPosterior.unravel
     _noise = NNPosterior._noise

@@ -19,7 +19,7 @@ import torch
 import torch.distributed as dist
 
 from pmpx_torch.parallel.mesh import AXIS_TREE, all_gather_cat
-from pmpx_torch.samplers.base import Target, batch_log_prob
+from pmpx_torch.samplers.base import Target, batch_log_prob, declare_eager
 from pmpx_torch.samplers.pmp import (
     PMPConfig,
     _take,
@@ -81,4 +81,7 @@ def make_tree_sharded_superstep(target: Target, cfg: PMPConfig,
             "root_logp": _take(logpi, root),
         }
 
-    return superstep
+    # the gather is a collective (on gloo a copy through the host), which
+    # no CUDA graph of one rank holds: run_chain keeps it eager
+    return declare_eager(
+        superstep, "its evaluation all-gathers over the tree axis")

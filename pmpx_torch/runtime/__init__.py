@@ -68,12 +68,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpmpx_torch_rt_{h.hexdigest()[:16]}.so"
 
 
-def build() -> bool:
-    """Compile the library with ``g++`` (or ``c++``) unless it is built;
-    True when it is there.  Concurrent builds each write their own file
-    and rename it into place."""
+def build(force: bool = False) -> bool:
+    """Compile the library with ``g++`` (or ``c++``) unless it is built
+    (``force=True`` compiles it again); True when it is there.  Concurrent
+    builds each write their own file and rename it into place, so a
+    process that has the old file loaded keeps it."""
     so = library_path()
-    if so.exists():
+    if so.exists() and not force:
         return True
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:

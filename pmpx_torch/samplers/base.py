@@ -1,8 +1,11 @@
 """Sampler core: target protocol, batched evaluation, chain runner (port of
 ``pmpx/samplers/base.py``).
 
-A superstep is a function ``(generator, state) -> (state', out)``; a chain
-is a Python loop over supersteps (see :func:`run_chain` for the design).
+A superstep is a function ``(generator, state) -> (state', out)``.  On a
+CUDA device a chain replays a captured CUDA graph of ``unroll``
+supersteps, PyTorch's counterpart of ``pmpx``'s ``lax.scan`` under one
+``jit``; on the CPU it is a Python loop over supersteps (see
+:func:`run_chain` for the design).
 """
 
 from __future__ import annotations
@@ -11,7 +14,11 @@ from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import torch
 
-__all__ = ["Target", "Tempered", "batch_log_prob", "run_chain"]
+from pmpx_torch.kernels import launches
+
+__all__ = ["CompiledChain", "Target", "Tempered", "batch_log_prob",
+           "compile_chain", "declare_eager", "eager_reason", "run_chain",
+           "run_chain_eager"]
 
 
 @runtime_checkable
@@ -20,7 +27,10 @@ class Target(Protocol):
 
     Implementations may additionally provide
     ``log_prob_batch(Theta: (P, d)) -> (P,)`` (preferred over a loop of
-    ``log_prob`` when present) and ``value_and_grad_batch``.
+    ``log_prob`` when present) and ``value_and_grad_batch``.  A target
+    whose evaluation cannot run inside a CUDA graph (it issues
+    collectives) says why in its ``eager_only`` attribute; the supersteps
+    built over it inherit the declaration (:func:`declare_eager`).
     """
 
     d: int
@@ -52,7 +62,8 @@ def batch_log_prob(
 class Tempered:
     """Scale a target's log-density by ``beta`` (the reference's
     likelihood-tempering divisors as explicit config).  Forwards
-    ``needs_rng`` and any ``value_and_grad_batch`` of the wrapped target.
+    ``needs_rng``, ``eager_only`` and any ``value_and_grad_batch`` of the
+    wrapped target.
     """
 
     def __init__(self, target: Target, beta: float):
@@ -60,6 +71,7 @@ class Tempered:
         self.beta = float(beta)
         self.d = target.d
         self.needs_rng = bool(getattr(target, "needs_rng", False))
+        self.eager_only = getattr(target, "eager_only", None)
         if hasattr(target, "value_and_grad_batch"):
             if self.needs_rng:
                 def vgb(Theta, generator=None):
@@ -82,6 +94,60 @@ class Tempered:
         return self.beta * batch_log_prob(self.inner, Theta, generator)
 
 
+def declare_eager(superstep: Callable, reason: Optional[str]) -> Callable:
+    """Mark ``superstep`` as one that :func:`run_chain` must not capture
+    (``reason`` says why, e.g. its target issues collectives), or, with
+    ``reason=None``, as capturable; returns it.  The supersteps' makers
+    pass on their target's ``eager_only``."""
+    superstep.eager_only = reason
+    return superstep
+
+
+def eager_reason(superstep: Callable, state: Any = None) -> Optional[str]:
+    """Why :func:`run_chain` runs ``superstep`` from ``state`` as the
+    eager loop, or None when it replays a CUDA graph: the superstep's
+    declaration, or a state with no leaf on a CUDA device.  Raises
+    ValueError on a state that mixes CUDA tensors with others."""
+    on_cuda = None
+    if state is not None:
+        on_cuda = [isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in _leaves(state)]
+        if any(on_cuda) and not all(on_cuda):
+            raise ValueError(
+                f"the state of {_name(superstep)} mixes CUDA tensors with "
+                "others; a chain's state lies on one device")
+    declared = getattr(superstep, "eager_only", None)
+    if declared:
+        return declared
+    if on_cuda is not None and not any(on_cuda):
+        return "the state is not on a CUDA device"
+    return None
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with the leaves taken in order from the
+    iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_rebuild(v, leaves) for v in tree)
+    if isinstance(tree, list):
+        return [_rebuild(v, leaves) for v in tree]
+    return next(leaves)
+
+
+def _clone(tree):
+    return _rebuild(tree, (t.clone() for t in _leaves(tree)))
+
+
 def _stack(recs: list):
     first = recs[0]
     if isinstance(first, dict):
@@ -95,12 +161,227 @@ def _print_step(step: int, state, out) -> None:
     print(f"[pmpx_torch] step {step}")
 
 
+def _name(fn) -> str:
+    return (f"{getattr(fn, '__module__', '?')}."
+            f"{getattr(fn, '__qualname__', type(fn).__name__)}")
+
+
+def _layout(tree):
+    if isinstance(tree, dict):
+        return ("d", tuple((k, _layout(v)) for k, v in tree.items()))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, tuple(_layout(v) for v in tree))
+    if not isinstance(tree, torch.Tensor):
+        raise TypeError(f"a chain state holds tensors, not {type(tree)!r}")
+    return (tuple(tree.shape), tree.dtype, tree.device)
+
+
+def _plan(start: int, num_steps: int, unroll: int,
+          log_every: Optional[int]) -> list:
+    """Steps per replay from step ``start``: ``unroll`` each, and one
+    where fewer are left before the end or before the next step
+    ``log_fn`` sees (a segment ends at each)."""
+    plan, pos = [], start
+    while pos < num_steps:
+        end = num_steps
+        if log_every:
+            end = min(end, -(-pos // log_every) * log_every + 1)
+        k = unroll if end - pos >= unroll else 1
+        plan.append(k)
+        pos += k
+    return plan
+
+
+class _Chunk:
+    """``steps`` supersteps from the chain's static state: a captured
+    CUDA graph, or (``graph=None``) the same body run eagerly each time.
+    ``recs`` and ``last`` are its static outputs, ``counts`` the kernel
+    launches one replay makes."""
+
+    def __init__(self, graph, recs=None, last=None, counts=None):
+        self.graph, self.recs, self.last = graph, recs, last
+        self.counts = counts or {}
+
+
+class CompiledChain:
+    """The compiled chain of one superstep, ``collect``, ``unroll`` and
+    state layout (:func:`compile_chain` builds it).
+
+    ``run(generator, state0, num_steps, log_every=None, log_fn=None)`` is
+    :func:`run_chain` on it.  The first run runs step 0 eagerly (lazy
+    initialisation and the kernels' build happen outside any graph) and
+    keeps its record, then captures a graph of ``unroll`` supersteps and
+    one of one (the tail, and the segments ``log_every`` cuts) in the
+    first one's memory pool.  Every later run only replays, so a
+    timed window that follows a first run holds no capture.  The state
+    lives in static tensors; each graph's last node copies its new state
+    back into them, so replays chain.  The chain draws from a generator
+    of its own, registered with both graphs before capture: a run copies
+    the caller's generator state in and the advanced state back out (host
+    bytes, no sync).  It runs on the caller's stream: a side stream could
+    not reuse the blocks the caching allocator holds for the caller's,
+    and a full-width NN step would need its peak twice.  The graphs and
+    their pool live as long as the chain.
+
+    A superstep that :func:`eager_reason` gives a reason for runs as
+    :func:`run_chain_eager` at each run.  ``capture=False`` runs each
+    chunk's body eagerly instead of replaying it (the CPU tests of the
+    runner).
+    """
+
+    def __init__(self, superstep, generator, state_like, collect=None,
+                 unroll: int = 1, *, capture: bool = True):
+        if unroll < 1:
+            raise ValueError(f"unroll must be >= 1, got {unroll}")
+        self.superstep, self.collect, self.unroll = superstep, collect, unroll
+        self.reason = eager_reason(superstep, state_like) if capture else None
+        self.capture = capture
+        if self.reason is not None:
+            return
+        self.layout = _layout(state_like)
+        leaves = _leaves(state_like)
+        self.tree = _rebuild(state_like, iter([None] * len(leaves)))
+        self.static = [torch.empty_like(t) for t in leaves]
+        self.gen = (None if generator is None
+                    else torch.Generator(device=generator.device))
+        self.chunks: dict = {}
+        self.pool = None
+
+    def _state(self):
+        return _rebuild(self.tree, iter(self.static))
+
+    def _store(self, state) -> None:
+        new = _leaves(state)
+        if len(new) != len(self.static):
+            raise ValueError(f"{_name(self.superstep)} returned a state "
+                             "of another structure")
+        for dst, src in zip(self.static, new):
+            dst.copy_(src)
+
+    def _body(self, steps: int):
+        state = self._state()
+        recs = []
+        for _ in range(steps):
+            state, out = self.superstep(self.gen, state)
+            recs.append(out if self.collect is None
+                        else self.collect(state, out))
+        stacked = _stack(recs)
+        self._store(state)
+        return stacked, out
+
+    def _first_step(self):
+        """Step 0 run eagerly; returns its (out, record)."""
+        state, out = self.superstep(self.gen, self._state())
+        rec = out if self.collect is None else self.collect(state, out)
+        self._store(state)
+        return out, rec
+
+    def _compile(self) -> None:
+        for steps in sorted({self.unroll, 1}, reverse=True):
+            self.chunks[steps] = self._capture(steps)
+
+    def _capture(self, steps: int) -> _Chunk:
+        if not self.capture:
+            return _Chunk(None)
+        before = dict(launches)
+        graph = torch.cuda.CUDAGraph()
+        if self.gen is not None:
+            graph.register_generator_state(self.gen)
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                recs, last = self._body(steps)
+            counts = {k: launches[k] - before[k] for k in launches
+                      if launches[k] != before[k]}
+        except Exception as e:
+            raise RuntimeError(
+                f"run_chain: cannot capture the superstep "
+                f"{_name(self.superstep)} in a CUDA graph "
+                f"({type(e).__name__}: {e}); a superstep that cannot run "
+                "in a graph declares so with declare_eager") from e
+        finally:
+            launches.update(before)  # the capture launches nothing
+        if self.pool is None:
+            self.pool = graph.pool()
+        return _Chunk(graph, recs, last, counts)
+
+    def run(self, generator, state0, num_steps: int,
+            log_every: Optional[int] = None,
+            log_fn: Optional[Callable[[int, Any, Any], None]] = None):
+        if num_steps < 1:
+            raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+        if self.reason is not None:
+            return run_chain_eager(self.superstep, generator, state0,
+                                   num_steps, self.collect, self.unroll,
+                                   log_every, log_fn)
+        if _layout(state0) != self.layout:
+            raise ValueError(f"the chain of {_name(self.superstep)} was "
+                             "compiled for another state layout")
+        for dst, src in zip(self.static, _leaves(state0)):
+            dst.copy_(src)
+        if generator is not None:
+            self.gen.set_state(generator.get_state())
+        log = log_fn or _print_step
+        first, start = None, 0
+        if not self.chunks:
+            first, start = self._first_step(), 1
+            if log_every:
+                log(0, _clone(self._state()), _clone(first[0]))
+            self._compile()
+        outs = tree = None
+        if first is not None:
+            tree = first[1]
+            outs = [torch.empty((num_steps, *r.shape), dtype=r.dtype,
+                                device=r.device) for r in _leaves(tree)]
+            for dst, src in zip(outs, _leaves(tree)):
+                dst[0].copy_(src)
+        pos = start
+        for k in _plan(start, num_steps, self.unroll, log_every):
+            chunk = self.chunks[k]
+            if chunk.graph is None:
+                chunk.recs, chunk.last = self._body(k)
+            else:
+                chunk.graph.replay()
+                for name, n in chunk.counts.items():
+                    launches[name] += n
+            leaves = _leaves(chunk.recs)
+            if outs is None:
+                tree = chunk.recs
+                outs = [torch.empty((num_steps, *r.shape[1:]),
+                                    dtype=r.dtype, device=r.device)
+                        for r in leaves]
+            for dst, src in zip(outs, leaves):
+                dst[pos:pos + k].copy_(src)
+            pos += k
+            if log_every and (pos - 1) % log_every == 0:
+                log(pos - 1, _clone(self._state()), _clone(chunk.last))
+        if generator is not None:
+            generator.set_state(self.gen.get_state())
+        final = _rebuild(self.tree, (t.clone() for t in self.static))
+        return final, _rebuild(tree, iter(outs))
+
+
+def compile_chain(
+    superstep: Callable[[torch.Generator, Any], tuple],
+    generator: Optional[torch.Generator],
+    state_like: Any,
+    collect: Optional[Callable[[Any, Any], Any]] = None,
+    unroll: int = 1,
+) -> CompiledChain:
+    """The chain of ``superstep`` from states laid out as ``state_like``
+    and generators on ``generator``'s device, to run many times
+    (:class:`CompiledChain`): its first run captures, later runs only
+    replay.  Timed code makes the first run before its window;
+    :func:`pmpx_torch.checkpoint.resume_chain` runs every chunk on one."""
+    return CompiledChain(superstep, generator, state_like, collect, unroll)
+
+
 def run_chain(
     superstep: Callable[[torch.Generator, Any], tuple],
     generator: torch.Generator,
     state0: Any,
     num_steps: int,
     collect: Optional[Callable[[Any, Any], Any]] = None,
+    unroll: int = 1,
     log_every: Optional[int] = None,
     log_fn: Optional[Callable[[int, Any, Any], None]] = None,
 ):
@@ -113,17 +394,29 @@ def run_chain(
     ``log_every``/``log_fn``: opt-in host observability, off by default.
     With ``log_every`` set, ``log_fn(step, state', out)`` runs on the host
     after every step with ``step % log_every == 0`` (the default prints
-    the step); whatever it reads from the device syncs the loop there.
+    the step); whatever it reads from the device syncs the chain there.
 
     Design.  ``pmpx`` scans the superstep under one ``jit``, splitting one
-    PRNG key per step.  Here the loop is Python, and it stays on the
-    device: every step enqueues its kernels on the current stream and
-    nothing reads a value back to the host (no ``.item()``, no branch on
-    device data), so the host runs ahead of the card and the loop's only
-    synchronization is the caller's.  The randomness is one explicit
-    ``torch.Generator`` on the chain's device, threaded through every
-    superstep; its draws advance its Philox offset, so a chain is
-    reproducible from the generator's seed.  The stream differs from
+    PRNG key per step, with ``unroll`` supersteps a loop iteration.  Here,
+    on a CUDA device, step 0 runs eagerly, then ``unroll`` supersteps are
+    captured once into a CUDA graph and replayed until ``num_steps`` (a
+    one-step graph takes the tail that ``unroll`` does not divide).  The
+    state is copied into static tensors that each replay reads and
+    overwrites; each replay's stacked records are copied into the run's
+    ``(num_steps, ...)`` buffers on the device.  Nothing reads a value
+    back to the host, so the host runs ahead of the card and the chain's
+    only synchronization is the caller's.  Each call compiles its own
+    chain (:class:`CompiledChain`), freed when it returns; a caller that
+    runs one chain many times, or times it, compiles it once with
+    :func:`compile_chain`.  ``kernels.launches`` counts step 0's launches
+    and each replay's (the capture counts none).
+
+    The randomness is one explicit ``torch.Generator`` on the chain's
+    device, threaded through every superstep; its draws advance its
+    Philox offset, so a chain is reproducible from the generator's seed.
+    A captured op takes the offset it would take eagerly, so the records,
+    the final state and the generator's state equal those of
+    :func:`run_chain_eager` bit for bit.  The stream differs from
     ``jax.random``'s: tests that compare the two inject the same noise
     into each superstep.  Checkpoint/resume (:mod:`pmpx_torch.checkpoint`)
     saves the generator's state (``get_state``) beside the chain state at
@@ -132,7 +425,31 @@ def run_chain(
     or without a resume between them, draw what one ``run_chain`` of the
     same seed and total step count draws, and give the same chain bit for
     bit.
+
+    The eager loop runs where :func:`eager_reason` gives a reason: on the
+    CPU, and for a superstep declared uncapturable (:func:`declare_eager`).
+    A state that mixes devices raises ValueError, and any other failure to
+    capture raises RuntimeError naming the superstep; nothing falls back.
     """
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    return compile_chain(superstep, generator, state0, collect, unroll).run(
+        generator, state0, num_steps, log_every, log_fn)
+
+
+def run_chain_eager(
+    superstep: Callable[[torch.Generator, Any], tuple],
+    generator: torch.Generator,
+    state0: Any,
+    num_steps: int,
+    collect: Optional[Callable[[Any, Any], Any]] = None,
+    unroll: int = 1,
+    log_every: Optional[int] = None,
+    log_fn: Optional[Callable[[int, Any, Any], None]] = None,
+):
+    """:func:`run_chain`'s plain version: a Python loop that launches
+    every superstep's kernels from the host (``unroll`` changes nothing
+    here).  The CPU path, and the oracle of the captured chain."""
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
     state = state0

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from torch.func import grad_and_value, vmap
 
 from pmpx_torch.resample import categorical
-from pmpx_torch.samplers.base import Target
+from pmpx_torch.samplers.base import Target, declare_eager
 from pmpx_torch.samplers.pmp import _take, select_and_emit
 from pmpx_torch.samplers.stabilize import stabilize_logits
 
@@ -318,9 +318,11 @@ def make_superstep(target: Target, cfg):
     """``superstep(generator, theta, **injected) -> (theta', out)`` for an
     :class:`HMCConfig`, :class:`MPHMCConfig` or :class:`PMPHMCConfig`."""
     if isinstance(cfg, HMCConfig):
-        return _make_sp_hmc(target, cfg)
-    if isinstance(cfg, MPHMCConfig):
-        return _make_mp_hmc(target, cfg)
-    if isinstance(cfg, PMPHMCConfig):
-        return _make_pmp_hmc(target, cfg)
-    raise TypeError(f"unknown HMC config type {type(cfg)!r}")
+        superstep = _make_sp_hmc(target, cfg)
+    elif isinstance(cfg, MPHMCConfig):
+        superstep = _make_mp_hmc(target, cfg)
+    elif isinstance(cfg, PMPHMCConfig):
+        superstep = _make_pmp_hmc(target, cfg)
+    else:
+        raise TypeError(f"unknown HMC config type {type(cfg)!r}")
+    return declare_eager(superstep, getattr(target, "eager_only", None))

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from pmpx_torch.samplers.base import Target, batch_log_prob
+from pmpx_torch.samplers.base import Target, batch_log_prob, declare_eager
 
 __all__ = ["MHConfig", "make_superstep"]
 
@@ -86,4 +86,4 @@ def make_superstep(target: Target, cfg: MHConfig):
             "root_logp": torch.where(accept, lp_prop, lp_cur),
         }
 
-    return superstep
+    return declare_eager(superstep, getattr(target, "eager_only", None))

@@ -27,7 +27,7 @@ import torch
 
 from pmpx_torch import tree as tree_mod
 from pmpx_torch.resample import categorical, categorical_many
-from pmpx_torch.samplers.base import Target, batch_log_prob
+from pmpx_torch.samplers.base import Target, batch_log_prob, declare_eager
 from pmpx_torch.samplers.stabilize import stabilize_logits
 from pmpx_torch.transition import GaussianRW
 
@@ -246,4 +246,4 @@ def make_superstep(target: Target, cfg: PMPConfig):
             "root_logp": _take(logpi, root),
         }
 
-    return superstep
+    return declare_eager(superstep, getattr(target, "eager_only", None))

@@ -204,6 +204,12 @@ class NNPosterior:
                                device=self.device)
                 for k, shape in self._noise_shapes.items()}
 
+    def draw_noise(self, generator) -> Optional[dict]:
+        """One forward pass's weight noise, drawn from ``generator``, to
+        pass as ``noise=`` to :meth:`log_prob` and :meth:`accuracy` (None
+        for a deterministic model)."""
+        return self._noise(generator)
+
     def _logits(self, theta: torch.Tensor, X: torch.Tensor,
                 noise: Optional[dict] = None) -> torch.Tensor:
         params = self.unravel(theta)
@@ -229,12 +235,17 @@ class NNPosterior:
         return c
 
     # -- Target protocol ------------------------------------------------
-    def log_prob(self, theta: torch.Tensor, generator=None) -> torch.Tensor:
+    def log_prob(self, theta: torch.Tensor, generator=None,
+                 noise: Optional[dict] = None) -> torch.Tensor:
+        """A stochastic model evaluates on ``noise`` (:meth:`draw_noise`)
+        where given, else on weight noise drawn from ``generator``."""
         if self._fast_batch is not None:
             # singles through the kernel too: acceptance ratios compare
             # densities of ONE floating-point evaluation order
             return self._fast_batch(theta[None])[0]
-        return self._neg_loss(theta, self._noise(generator))
+        if noise is None:
+            noise = self._noise(generator)
+        return self._neg_loss(theta, noise)
 
     def log_prob_batch(self, Theta: torch.Tensor,
                        generator=None) -> torch.Tensor:
@@ -258,12 +269,17 @@ class NNPosterior:
 
     # ------------------------------------------------------------------
     def accuracy(self, theta: torch.Tensor, X=None, Y=None,
-                 generator=None) -> torch.Tensor:
+                 generator=None, noise: Optional[dict] = None
+                 ) -> torch.Tensor:
         """Classification accuracy (the reference logs train/test correct
         ratios, ``PMP_FC.py:147-156``), through the generic forward; a
-        stochastic model draws one set of weights from ``generator``."""
+        stochastic model takes one set of weights from ``noise``
+        (:meth:`draw_noise`) where given, else draws it from
+        ``generator``."""
         X = self.X if X is None else X
         Y = self.Y if Y is None else Y
+        if noise is None:
+            noise = self._noise(generator)
         with torch.no_grad():
-            logits = self._logits(theta, X, self._noise(generator))
+            logits = self._logits(theta, X, noise)
             return (logits.argmax(dim=-1) == Y).float().mean()

@@ -24,6 +24,7 @@ from pmpx_torch.experiments import ess_msjd as tem  # noqa: E402
 from pmpx_torch.interop import linreg_from_numpy  # noqa: E402
 from pmpx_torch.kernels import fused_chain as tfc  # noqa: E402
 from pmpx_torch.metrics.recorder import load_trace  # noqa: E402
+from pmpx_torch.samplers.base import CompiledChain  # noqa: E402
 
 
 def _ar1(n, phi, rng):
@@ -163,7 +164,7 @@ def test_emit_all_scan_cell_matches_plain_flattening(burn_in, tmp_path,
                                                      monkeypatch):
     """The port's superstep emit-all cell (ess_msjd._emit_all_cell) against
     a float64 plain reading of the samples its chain collected: a spy on
-    run_chain keeps every chunk's (n, P, 3) samples.  The MSJD numerator
+    its compiled chain's run keeps every chunk's (n, P, 3) samples.  The MSJD numerator
     is the sum of squared jumps of the iteration-major flattened stream
     whose earlier element has index >= burn_in * P, to rtol 1e-6 (f32
     sums on the device, per chunk); the spooled columns are the samples'
@@ -176,14 +177,14 @@ def test_emit_all_scan_cell_matches_plain_flattening(burn_in, tmp_path,
                  selection="all_first")
     num_steps, emit_chunk, P = 120, 50, 8
     seen = []
-    run_chain = tem.run_chain
+    run = CompiledChain.run
 
-    def spy(*args, **kw):
-        out = run_chain(*args, **kw)
+    def spy(self, *args, **kw):
+        out = run(self, *args, **kw)
         seen.append(out[1].clone())
         return out
 
-    monkeypatch.setattr(tem, "run_chain", spy)
+    monkeypatch.setattr(CompiledChain, "run", spy)
     got = tem._emit_all_cell(tt, spec, torch.tensor([0.0, 0.0, 1.0]),
                              num_steps, burn_in, emit_chunk,
                              str(tmp_path), 0, True, "c")

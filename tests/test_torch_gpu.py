@@ -618,13 +618,16 @@ def test_batched_superstep_on_the_card_matches_cpu(cuda, spec):
     def run(dev):
         tgt = BayesLinReg(x, y, temper=1 / 2000, method="sweep", device=dev)
         sup = SamplerSpec(step_size=0.02, **spec).build(tgt)
-        step = iter(range(T))
+        # step t's noise through a counter on the device, so that the
+        # card's run_chain replays it from its CUDA graph
+        noise = dict(eps=eps.to(dev), u=u.to(dev))
+        if P != 2:
+            noise["pick"] = pick.to(dev)
+        t = torch.zeros(1, dtype=torch.long, device=dev)
 
         def replay(gen, th):
-            t = next(step)
-            kw = dict(eps=eps[t].to(dev), u=u[t].to(dev))
-            if P != 2:
-                kw["pick"] = pick[t].to(dev)
+            kw = {k: v.index_select(0, t)[0] for k, v in noise.items()}
+            t.add_(1)
             return sup(gen, th, **kw)
 
         return run_chains_vmapped(replay, None, theta0.to(dev), T,
@@ -1016,3 +1019,321 @@ def test_gloo_ranks_on_the_card_sync_batch_norm(cuda, tmp_path):
         assert res["routes"]["all_reduce"] == {"direct": 0, "host": 6}
         torch.testing.assert_close(res["v"], wv, rtol=2e-5, atol=1e-6)
         torch.testing.assert_close(res["g"], wg, rtol=5e-3, atol=1e-5)
+
+
+# the compiled chain: run_chain replays a captured CUDA graph of the
+# superstep on the card; run_chain_eager is its plain version
+
+
+def _linreg_sweep(dev, n=100_000, seed=0, temper=1 / 2000):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x, y = make_synthetic_linreg(g, n)
+    return BayesLinReg(x, y, temper=temper, method="sweep", device=dev)
+
+
+def _same_tree(a, b):
+    from pmpx_torch.samplers import base
+
+    la, lb = base._leaves(a), base._leaves(b)
+    assert type(a) is type(b) and len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert torch.equal(x, y)
+
+
+def _captured_vs_eager(sup, theta0, steps, collect=None, unroll=1,
+                       seed=3):
+    """One run_chain (captured) and one run_chain_eager from generators
+    of one seed: records, final state and generator state bit-equal, and
+    the same kernel launches; then two runs more of one compiled chain,
+    the second only replaying, against two more of the loop."""
+    from pmpx_torch.kernels import reset_launches
+    from pmpx_torch.samplers.base import compile_chain, eager_reason, \
+        run_chain, run_chain_eager
+
+    assert eager_reason(sup, theta0) is None
+    dev = theta0.device
+    ga = torch.Generator(device=dev)
+    ga.manual_seed(seed)
+    gb = torch.Generator(device=dev)
+    gb.manual_seed(seed)
+    reset_launches()
+    fa, ra = run_chain_eager(sup, ga, theta0, steps, collect=collect)
+    want = {k: v for k, v in launches.items() if v}
+    reset_launches()
+    fb, rb = run_chain(sup, gb, theta0, steps, collect=collect,
+                       unroll=unroll)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launches.items() if v} == want
+    _same_tree(fa, fb)
+    _same_tree(ra, rb)
+    assert torch.equal(ga.get_state(), gb.get_state())
+    # one compiled chain from where the first runs left off: its first run
+    # captures, its second only replays
+    chain = compile_chain(sup, gb, fb, collect, unroll)
+    for _ in range(2):
+        fa, ra = run_chain_eager(sup, ga, fa, steps, collect=collect)
+        chunks = dict(chain.chunks)
+        fb, rb = chain.run(gb, fb, steps)
+        _same_tree(fa, fb)
+        _same_tree(ra, rb)
+        assert torch.equal(ga.get_state(), gb.get_state())
+    assert chain.chunks == chunks and sorted(chunks) == sorted({1, unroll})
+    return want
+
+
+COMPILED_SPECS = {
+    "pmp_binary": dict(algo="pmp", N=1, depth=10, selection="all_first"),
+    "pmp_uniform": dict(algo="pmp", N=1, depth=4, selection="all_uniform"),
+    "pmp_general": dict(algo="pmp", N=7, depth=3, selection="all_first"),
+    "mp": dict(algo="mp", N=7, selection="all_first"),
+    "psp": dict(algo="psp", P=16),
+    "mh": dict(algo="mh"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unroll", [1, 3])
+@pytest.mark.parametrize("name", sorted(COMPILED_SPECS))
+def test_compiled_chain_equals_the_eager_loop(cuda, name, unroll):
+    """10 supersteps over linreg at n = 100,000 on the sweep, captured
+    (unroll 1, or 3 with a tail) against the eager loop: bit-equal
+    records (through a dict and a tuple collect), final state and
+    generator state, one linreg_rss launch a superstep counted per
+    replay."""
+    from pmpx_torch.config import SamplerSpec
+
+    spec = dict(COMPILED_SPECS[name])
+    if spec["algo"] == "psp":
+        from pmpx_torch.samplers import psp
+
+        sup = psp.make_superstep(_linreg_sweep(cuda), psp.PSPConfig(
+            P=spec["P"], step_size=0.02))
+    else:
+        sup = SamplerSpec(step_size=0.02, **spec).build(_linreg_sweep(cuda))
+    theta0 = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    collect = None if unroll == 1 else (lambda th, o: (th, o["root_logp"]))
+    with torch.no_grad():
+        counts = _captured_vs_eager(sup, theta0, 10, collect, unroll)
+    assert counts == {"linreg_rss": 10}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["pmp", "mh"])
+def test_compiled_chain_batched_chains(cuda, algo):
+    """C = 8 chains as one (8, 3) state: one launch a superstep, captured
+    against eager bit for bit."""
+    from pmpx_torch.config import SamplerSpec
+
+    sup = SamplerSpec(algo=algo, N=1, depth=3, step_size=0.02,
+                      selection="all_first").build(_linreg_sweep(cuda))
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+    theta0 = (torch.tensor([-1.0, 2.0, 0.5], device=cuda)
+              + 0.05 * torch.randn((8, 3), generator=g, device=cuda))
+    with torch.no_grad():
+        counts = _captured_vs_eager(sup, theta0, 12,
+                                    lambda th, o: th, unroll=4)
+    assert counts == {"linreg_rss": 12}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["sp_hmc", "mp_hmc", "pmp_hmc"])
+def test_compiled_hmc_over_linreg(cuda, algo):
+    """SP-, MP- and PMP-HMC over linreg on the sweep (a gradient a density
+    call), captured against eager bit for bit."""
+    from pmpx_torch.config import SamplerSpec
+
+    sup = SamplerSpec(algo=algo, N=3, depth=2, step_size=0.0005).build(
+        _linreg_sweep(cuda))
+    theta0 = torch.tensor([-1.0, 2.0, 0.5], device=cuda)
+    with torch.no_grad():
+        counts = _captured_vs_eager(sup, theta0, 8, lambda th, o: th)
+    assert counts["linreg_rss"] > 8
+
+
+@pytest.mark.gpu
+def test_compiled_chain_resumes_bit_equal(cuda, tmp_path, monkeypatch):
+    """resume_chain in chunks of 7 (one graph, captured once) equals one
+    straight captured run_chain and the eager loop, in states, records
+    and the generator's saved state."""
+    from pmpx_torch import checkpoint as ck
+    from pmpx_torch.config import SamplerSpec
+    from pmpx_torch.samplers import base
+
+    captures = []
+    capture = base.CompiledChain._capture
+    monkeypatch.setattr(base.CompiledChain, "_capture", lambda self, k: (
+        captures.append(k), capture(self, k))[1])
+
+    sup = SamplerSpec(algo="pmp", N=7, depth=3, step_size=0.02,
+                      selection="all_first").build(_linreg_sweep(cuda))
+    theta0 = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    ge = torch.Generator(device=cuda)
+    ge.manual_seed(1)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    with torch.no_grad():
+        thE, recE = base.run_chain_eager(sup, ge, theta0, 30,
+                                         collect=lambda th, o: th)
+        path = str(tmp_path / "c.ckpt")
+        ck.save_checkpoint(path, theta0, g, 0)
+        th, chunks = ck.resume_chain(sup, path, 30,
+                                     collect=lambda th, o: th,
+                                     checkpoint_every=7)
+        straight = base.run_chain(sup, g, theta0, 30,
+                                  collect=lambda th, o: th)
+    assert captures == [1, 1]  # one for the resumed run, one for straight
+    assert torch.equal(straight[0], thE) and torch.equal(straight[1], recE)
+    assert torch.equal(th, thE)
+    assert torch.equal(torch.cat([torch.from_numpy(c) for c in chunks]),
+                       recE.cpu())
+    _, g2, step, _ = ck.load_checkpoint(path)
+    assert step == 30 and torch.equal(g2.get_state(), ge.get_state())
+
+
+@pytest.mark.gpu
+def test_capturing_a_host_read_raises(cuda):
+    """A superstep that reads a value back to the host cannot be captured:
+    run_chain raises, naming it, and never falls back to the loop."""
+    from pmpx_torch.samplers.base import run_chain
+
+    def reads_back(gen, theta):
+        if theta.sum().item() > 1e9:
+            theta = theta * 0
+        return theta + 1.0, {"x": theta}
+
+    th = torch.zeros(3, device=cuda)
+    with pytest.raises(RuntimeError, match="reads_back"):
+        run_chain(reads_back, None, th, 4)
+    torch.cuda.synchronize()
+    # the card is still usable
+    assert torch.equal(th + 1, torch.ones(3, device=cuda))
+
+
+@pytest.mark.gpu
+def test_compiled_chain_launches_match_the_graph(cuda):
+    """The launches run_chain counts are the kernels the card runs: each
+    replay adds the launches its capture saw, one linreg_rss kernel node a
+    wrapper call (bench.graph_nodes), so R supersteps count R launches."""
+    from pmpx_torch import bench
+    from pmpx_torch.config import SamplerSpec
+    from pmpx_torch.kernels import reset_launches
+    from pmpx_torch.samplers import base
+
+    tgt = _linreg_sweep(cuda)
+    b0, b1, _ = pad_proposals(torch.zeros(1024, device=cuda),
+                              torch.zeros(1024, device=cuda))
+    nodes = bench.graph_nodes(lambda: batched_rss(
+        b0, b1, tgt.x2d, tgt.y2d, n_valid=tgt.n))
+    assert nodes["kernels"] == 1
+    sup = SamplerSpec(algo="pmp", N=1, depth=10, step_size=0.02,
+                      selection="all_first").build(tgt)
+    theta0 = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    chain = base.compile_chain(sup, g, theta0, unroll=2)
+    with torch.no_grad():
+        chain.run(g, theta0, 5)
+        reset_launches()
+        chain.run(g, theta0, 25)
+    assert chain.chunks[2].counts == {"linreg_rss": 2 * nodes["kernels"]}
+    assert chain.chunks[1].counts == {"linreg_rss": nodes["kernels"]}
+    assert launches["linreg_rss"] == 25 * nodes["kernels"]
+
+
+@pytest.mark.gpu
+def test_time_sweep_captures_outside_its_window(cuda, monkeypatch):
+    """bench.time_sweep compiles its chain and captures it in the warm-up:
+    nothing is captured between before_timed() and the end of the timed
+    run, which counts one linreg_rss launch a superstep."""
+    from pmpx_torch import bench
+    from pmpx_torch.kernels import reset_launches
+    from pmpx_torch.samplers import base
+
+    captures, marks = [], []
+    capture = base.CompiledChain._capture
+    monkeypatch.setattr(base.CompiledChain, "_capture", lambda self, k: (
+        captures.append(k), capture(self, k))[1])
+
+    def before_timed():
+        reset_launches()
+        marks.append(len(captures))
+
+    with torch.no_grad():
+        us, trace = bench.time_sweep(_linreg_sweep(cuda), bench.bench_config(),
+                                     before_timed=before_timed)
+    assert captures == [1] and marks == [1]
+    assert launches["linreg_rss"] == bench.SWEEP_ITERS
+    assert trace.shape == (bench.SWEEP_ITERS, 3) and us > 0
+
+
+@pytest.mark.gpu
+def test_a_state_that_mixes_devices_raises_on_the_card(cuda):
+    """A state with one leaf on the card and one off it raises in
+    eager_reason and run_chain; it never runs as the loop."""
+    from pmpx_torch.config import SamplerSpec
+    from pmpx_torch.samplers.base import eager_reason, run_chain
+
+    sup = SamplerSpec(algo="mh", step_size=0.02).build(_linreg_sweep(cuda))
+    mixed = (torch.zeros(3, device=cuda), torch.zeros(3))
+    with pytest.raises(ValueError, match="mixes CUDA tensors"):
+        eager_reason(sup, mixed)
+    with pytest.raises(ValueError, match="mixes CUDA tensors"):
+        run_chain(sup, None, mixed, 2)
+
+
+# the NN experiments' run(), captured (the default) and with the loop forced:
+# the same outputs
+NN_RUNS = {
+    "mnist_FC_pmp": ("mnist", dict(model="FC", algo="pmp", n_train=256,
+                                   n_test=64, num_steps=6, chunk_steps=0)),
+    "mnist_FC_mh_chunked": ("mnist", dict(
+        model="FC", algo="mh", n_train=256, n_test=64, num_steps=6,
+        chunk_steps=3)),
+    "mnist_LSTM_kernel": ("mnist", dict(
+        model="LSTM", algo="pmp", n_train=256, n_test=64, num_steps=4,
+        chunk_steps=0, lstm_kernel=True)),
+    "mnist_CNN_kernel": ("mnist", dict(
+        model="CNN", algo="pmp", n_train=256, n_test=64, num_steps=4,
+        chunk_steps=0, cnn_kernel=True)),
+    "cifar_nhwc_sp": ("cifar_hmc", dict(algo="sp_hmc", n_train=128,
+                                        n_test=32, num_steps=4)),
+    "cifar_packed_pmp": ("cifar_hmc", dict(
+        algo="pmp_hmc", layout="packed", n_train=128, n_test=32,
+        num_steps=4, chunk_steps=2)),
+    "cifar_remat_mp": ("cifar_hmc", dict(algo="mp_hmc", remat=True,
+                                         n_train=128, n_test=32,
+                                         num_steps=4)),
+    "bnn_pmp": ("bnn", dict(hidden=64, n_train=256, n_test=64,
+                            num_steps=4, chunk_steps=2)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", sorted(NN_RUNS))
+def test_nn_paths_captured_equal_the_loop(cuda, tmp_path, monkeypatch,
+                                          label):
+    """mnist (FC, the LSTM through lstm_fused, the CNN through cnn_fast),
+    cifar_hmc (nhwc, packed, remat) and bnn (its noise a density call),
+    each run with run_chain's default (captured) and with the eager loop
+    forced, under deterministic algorithms: the same outputs."""
+    import importlib
+
+    from pmpx_torch.samplers import base
+
+    mod_name, kw = NN_RUNS[label]
+    mod = importlib.import_module(f"pmpx_torch.experiments.{mod_name}")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = mod.run(out_dir=str(tmp_path / "graph"), device=cuda, **kw)
+        monkeypatch.setattr(base, "eager_reason",
+                            lambda *a: "forced by the test")
+        want = mod.run(out_dir=str(tmp_path / "loop"), device=cuda, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k, v in want.items():
+        if "wall" in k or k.endswith("_s") or "us_" in k or "ms" in k:
+            continue
+        assert got[k] == v, (label, k)
