@@ -137,7 +137,24 @@ Phases, each printing its wall time:
    profiler trace of each (kernels and device busy µs a superstep, idle
    share); 16d. the MNIST-LSTM MH chain through ``lstm_fused`` at full
    batch, captured against eager (bit for bit, µs and kernels a
-   superstep); and which supersteps of the whole run went eager, and why.
+   superstep); and which supersteps of the whole run went eager, and why;
+17. the repo's entry points outside the package, as a user runs them
+   (the step counts cut, listed in its JSON line): 17a. the two examples
+   (``examples/quickstart_torch.py``, ``examples/bayesian_nn_torch.py``)
+   as subprocesses at their own sizes, the quickstart's means within 4
+   Monte Carlo standard errors of the banana's and bayesian_nn's loss
+   falling; 17b. ``scripts/run_zoo_torch.py``'s 12 cells at their widths
+   and batch sizes; 17c. a paper queue through
+   ``scripts/run_paper_torch.py`` in a temporary directory: the
+   MNIST-LSTM MH chain through ``lstm_fused`` SIGKILLed once mid-run and
+   resumed by the queue's retry, bit-equal to the same stage run
+   straight, CIFAR and BNN HMC at ``scale="paper"``, ``ess_msjd``'s
+   emit-all cells on both paths, and the summary
+   (``scripts/summarize_paper_torch.py``) counting every stage's
+   supersteps; a second run of the queue starts nothing; the stages'
+   kernel launches, reported by their processes, join the ``kernels``
+   line; 17d. ``scripts/profile_smallp_torch.py`` at its defaults, one
+   ``rss_kernel`` launch a superstep.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, ...}`` as the last
@@ -153,6 +170,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -413,6 +431,34 @@ P16_FC_STEPS = 3
 # the supersteps of this run that run_chain keeps eager: label -> the
 # reason eager_reason gives (phases 14a and 15a fill it, 16 prints it)
 EAGER: dict = {}
+
+# phase 17: the repo's entry points outside the package.  17a: the two
+# examples as subprocesses, side by side, at their own sizes
+# (P17_TIMEOUT_S each); the quickstart's means within P17_Z Monte Carlo
+# standard errors (the banana's marginal sds, BANANA_SD, over the root of
+# its printed ESS) of the analytic ones.  17b: run_zoo_torch's 12 cells at
+# their widths and batch sizes, the MNIST cells' 2000 supersteps cut to
+# ZOO_MNIST_STEPS.  17c, in a thread beside 17a and 17b and drained within
+# P17_QUEUE_S: a cut paper queue through run_paper_torch, its steps cut:
+# the MNIST-LSTM MH chain through lstm_fused (Q_LSTM_STEPS of 1,000,000 in
+# chunks of Q_LSTM_CHUNK, its Adam warm start Q_LSTM_PRETRAIN of mnist's
+# 50 steps), once SIGKILLed Q_KILL_DELAY_S after its first chunk reached
+# the disk and retried, and once straight; CIFAR SP- and PMP-HMC
+# (Q_CIFAR_STEPS of 50,000 in chunks of Q_CIFAR_CHUNK, bf16, the warm
+# start Q_CIFAR_PRETRAIN of cifar_hmc's 30 steps) and BNN SP- and PMP-HMC
+# (Q_BNN_STEPS of 30,000 in chunks of Q_BNN_CHUNK) at scale="paper";
+# ess_msjd's trace="all" on the fused kernel at n = 100,000, P in {8, 512}
+# (Q_ESS_STEPS of 1,000,000, burn-in Q_ESS_BURN of 2000); and the summary.
+# 17d: profile_smallp_torch at its defaults (P = 4, n = 500, 2000
+# supersteps)
+P17_TIMEOUT_S, P17_QUEUE_S, P17_Z = 300, 900, 4.0
+BANANA_MEAN, BANANA_SD = (0.0, -8.0), (1.0, 3.0)
+ZOO_MNIST_STEPS = 200
+Q_LSTM_STEPS, Q_LSTM_CHUNK, Q_LSTM_PRETRAIN = 300, 100, 5
+Q_KILL_DELAY_S = 0.1
+Q_CIFAR_STEPS, Q_CIFAR_CHUNK, Q_CIFAR_PRETRAIN = 6, 2, 3
+Q_BNN_STEPS, Q_BNN_CHUNK = 30, 10
+Q_ESS_STEPS, Q_ESS_BURN = 5000, 500
 
 # phase 6's P sweeps on the benchmark cell's data: one SWEEP_STEPS-superstep
 # launch per (N, depth), each timed over SWEEP_REPS, emit="all" up to its
@@ -2190,6 +2236,339 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
     return phase_counts
 
 
+
+def phase17_child(launches_file: str, *args) -> None:
+    """A 17c stage's child process: ``pmpx_torch.cli run <args>`` with
+    deterministic algorithms on; appends its kernel launches to
+    ``launches_file`` as one JSON line and exits with the CLI's code."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    from pmpx_torch import cli
+    from pmpx_torch.kernels import launches
+
+    rc = cli.main(["run", *args])
+    with open(launches_file, "a") as f:
+        f.write(json.dumps(launches) + "\n")
+    sys.exit(rc)
+
+
+def phase17_stage(launches_file: str, kill_marker: str, watch: str,
+                  delay: str, *args) -> None:
+    """A 17c queue stage (a ``cmd`` stage of the queue): runs
+    :func:`phase17_child` on ``args``.  Given a ``kill_marker`` that does
+    not exist yet, it SIGKILLs the child once, ``delay`` seconds after
+    ``watch`` (the first chunk's trace) appears, writes the marker and
+    exits 137, so that the queue retries the stage.  The stage runs this
+    function's source alone (:func:`_stage_code`), without torch."""
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import sys, chip_smoke as c; "
+                             "c.phase17_child(*sys.argv[1:])",
+                             launches_file, *args])
+    if kill_marker != "-" and not os.path.exists(kill_marker):
+        while proc.poll() is None and not os.path.exists(watch):
+            time.sleep(0.01)
+        time.sleep(float(delay))
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+            Path(kill_marker).write_text("killed")
+            sys.exit(137)
+    sys.exit(proc.wait())
+
+
+def _stage_code() -> str:
+    """:func:`phase17_stage`'s source and its call: a script that needs
+    neither torch nor this module."""
+    import inspect
+
+    return ("import os, signal, subprocess, sys, time\n"
+            "from pathlib import Path\n"
+            + inspect.getsource(phase17_stage)
+            + "phase17_stage(*sys.argv[1:])\n")
+
+
+def phase17(dev, name: str, smi: str) -> dict:
+    """The repo's entry points outside the package, through the paths a
+    user runs (17a-17d).  The cut queue (17c) runs in a thread beside 17a
+    and 17b: its stages are subprocesses, most of whose time is their
+    start and the device probe before each.  Returns the phase's launches
+    by kernel: this process's and those the queue's wrapped stages
+    reported."""
+    import importlib.util
+    import threading
+
+    from pmpx_torch.kernels import launches, reset_launches
+    from pmpx_torch.metrics.recorder import reference_style_name
+
+    here = Path(__file__).resolve().parent
+    counts: dict = {}
+    torch.cuda.empty_cache()  # the queue's stages share the card
+
+    def add(got: dict) -> None:
+        for k, v in got.items():
+            if v:
+                counts[k] = counts.get(k, 0) + v
+
+    def script(rel: str):
+        spec = importlib.util.spec_from_file_location(
+            f"_phase17_{Path(rel).stem}", here / rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        qd = Path(tmp)
+        # 17c, started first: the cut queue
+        rp = script("scripts/run_paper_torch.py")
+        rp.STATE_DIR = str(qd / "queue")
+        rp.COOLDOWN_S = 1
+        stem = reference_style_name("MH", 1e-4, Q_LSTM_STEPS, model="LSTM",
+                                    N=7)
+        hard = ["--class-sep", "0.35", "--label-noise", "0.05"]
+        lstm = ["mnist", "--model", "LSTM", "--algo", "mh", "--scale",
+                "paper", "--num-steps", str(Q_LSTM_STEPS), "--chunk-steps",
+                str(Q_LSTM_CHUNK), "--pretrain-steps", str(Q_LSTM_PRETRAIN),
+                "--lstm-kernel", "true", "--resume", "true", *hard]
+        wrapper = qd / "stage.py"
+        wrapper.write_text(_stage_code())
+
+        def wrapped(stage, args, kill="-", watch="-"):
+            return [str(wrapper), str(qd / f"{stage}.launches"), kill, watch,
+                    str(Q_KILL_DELAY_S), *args]
+
+        def hmc(exp, algo, steps, chunk, out):
+            return [exp, "--algo", algo, "--scale", "paper", "--num-steps",
+                    str(steps), "--chunk-steps", str(chunk), "--resume",
+                    "true", "--out-dir", str(qd / out)]
+
+        cifar = ["--compute-dtype", "bf16", "--pretrain-steps",
+                 str(Q_CIFAR_PRETRAIN), *hard]
+        stages = [
+            {"name": "lstm_mh_killed", "cmd": wrapped(
+                "lstm_mh_killed",
+                lstm + ["--out-dir", str(qd / "mnist_kernel")],
+                kill=str(qd / "killed"),
+                watch=str(qd / "mnist_kernel" / f"{stem}.loss.npy"))},
+            {"name": "lstm_mh_straight", "cmd": wrapped(
+                "lstm_mh_straight", lstm + ["--out-dir", str(qd / "straight")])},
+            {"name": "cifar_sp", "argv": hmc(
+                "cifar_hmc", "sp_hmc", Q_CIFAR_STEPS, Q_CIFAR_CHUNK, "cifar")
+                + cifar},
+            {"name": "cifar_pmp", "argv": hmc(
+                "cifar_hmc", "pmp_hmc", Q_CIFAR_STEPS, Q_CIFAR_CHUNK,
+                "cifar") + cifar},
+            {"name": "bnn_sp", "argv": hmc("bnn", "sp_hmc", Q_BNN_STEPS,
+                                           Q_BNN_CHUNK, "bnn_flagship")},
+            {"name": "bnn_pmp", "argv": hmc("bnn", "pmp_hmc", Q_BNN_STEPS,
+                                            Q_BNN_CHUNK, "bnn_flagship")
+                + ["--n", "2"]},
+            {"name": "ess_fused", "cmd": wrapped("ess_fused", [
+                "ess_msjd", "--trace", "all", "--method", "fused_chain",
+                "--Ps", "8,512", "--algos", "mp,pmp", "--n-data", "100000",
+                "--num-steps", str(Q_ESS_STEPS), "--burn-in",
+                str(Q_ESS_BURN), "--out-dir", str(qd / "ess_fused")])},
+            {"name": "summarize", "cmd": [
+                "scripts/summarize_paper_torch.py", "all", str(qd)]},
+        ]
+        qpath = qd / "queue.json"
+        qpath.write_text(json.dumps({"stages": stages}))
+        queue: dict = {}
+
+        def run_queue():
+            t0 = time.perf_counter()
+            try:
+                queue["rc"] = rp.main(str(qpath))
+            except BaseException as e:  # noqa: BLE001 (re-raised below)
+                queue["error"] = e
+            queue["wall_s"] = time.perf_counter() - t0
+
+        runner = threading.Thread(target=run_queue, daemon=True)
+        runner.start()
+
+        # 17a: the examples as a user runs them, side by side
+        procs, walls, outs = {}, {}, {}
+        t0 = time.perf_counter()
+        for rel in ("examples/quickstart_torch.py",
+                    "examples/bayesian_nn_torch.py"):
+            procs[rel] = subprocess.Popen(
+                [sys.executable, rel], cwd=here, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for rel, proc in procs.items():
+            out, err = proc.communicate(timeout=P17_TIMEOUT_S)
+            walls[rel] = time.perf_counter() - t0
+            print(out, end="")
+            require(proc.returncode == 0, f"17a {rel} exits 0 ({err[-1500:]})")
+            outs[rel] = out
+        num = r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?"
+        q = outs["examples/quickstart_torch.py"]
+        means = [float(re.search(rf"E\[x{i}\] = ({num})", q).group(1))
+                 for i in (1, 2)]
+        ess = [float(v) for v in re.findall(
+            num, re.search(r"ESS per dim: \[([^\]]*)\]", q).group(1))]
+        z = [abs(means[i] - BANANA_MEAN[i]) * math.sqrt(ess[i])
+             / BANANA_SD[i] for i in range(2)]
+        require("samples: (128000, 2)" in q, "17a the quickstart's samples")
+        require(max(z) < P17_Z, f"17a the quickstart's means {means} within "
+                f"{P17_Z} MCSE of (0, -8): z {z}")
+        loss = re.search(rf"loss: ({num}) -> ({num})",
+                         outs["examples/bayesian_nn_torch.py"])
+        require(float(loss.group(2)) < float(loss.group(1)),
+                "17a bayesian_nn's last loss below its first")
+        print(json.dumps({"phase17a": {
+            "wall_s": walls, "quickstart_means": means,
+            "quickstart_ess": ess, "quickstart_z": z,
+            "bayesian_nn_loss": [float(loss.group(1)),
+                                 float(loss.group(2))],
+            "beside": "the 17c queue", "device": name, "power": smi}}))
+
+        # 17b: the NN zoo at its widths and batch sizes
+        zoo = script("scripts/run_zoo_torch.py")
+        cells = [(f, dict(kw, num_steps=ZOO_MNIST_STEPS) if f == "mnist"
+                  else kw) for f, kw in zoo.CELLS]
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = zoo.main(cells, str(qd / "zoo"), device=dev)
+        zoo_wall = time.perf_counter() - t0
+        add(launches)
+        for fam in ("mnist", "cifar"):
+            require((qd / "zoo" / f"{fam}_zoo" / "summary.json").exists(),
+                    f"17b the {fam} zoo's summary")
+        flat = rows["mnist"] + rows["cifar"]
+        require(len(flat) == 12 and all(
+            math.isfinite(r["loss_first"]) and math.isfinite(r["loss_last"])
+            for r in flat), "17b 12 cells with finite losses")
+        print(json.dumps({"phase17b": {
+            "wall_s": zoo_wall,
+            "cells": [{k: r.get(k) for k in ("model", "algo", "wall_s",
+                                             "loss_first", "loss_last",
+                                             "test_acc", "test_acc_last")}
+                      for r in flat],
+            "launches": {k: v for k, v in launches.items() if v},
+            "beside": "the 17c queue", "device": name, "power": smi}}))
+
+        # 17c's gates, once its queue has drained
+        runner.join(timeout=P17_QUEUE_S)
+        require(not runner.is_alive(), f"17c the queue drains within "
+                f"{P17_QUEUE_S} s")
+        if "error" in queue:
+            raise queue["error"]
+        state = Path(rp.STATE_DIR)
+        done = {s["name"]: json.loads((state / f"{s['name']}.done")
+                                      .read_text())
+                for s in stages if (state / f"{s['name']}.done").exists()}
+        require(queue["rc"] == 0 and len(done) == len(stages)
+                and not list(state.glob("*.failed")),
+                f"17c every stage ends rc 0: {sorted(done)}")
+        require(done["lstm_mh_killed"]["attempts"] == 2
+                and (qd / "killed").exists()
+                and all(d["attempts"] == 1 for k, d in done.items()
+                        if k != "lstm_mh_killed"),
+                "17c the killed stage retried once, the others ran once")
+        # the retry resumed from the checkpoint: the trace and the final
+        # accuracies equal the straight run's, bit for bit
+        a, b = qd / "mnist_kernel", qd / "straight"
+        ta, tb = (np.load(d / f"{stem}.loss.npy") for d in (a, b))
+        ja, jb = (json.loads((d / f"{stem}.json").read_text())
+                  for d in (a, b))
+        require(ta.shape == (Q_LSTM_STEPS,) and np.array_equal(ta, tb)
+                and (ja["train_acc"], ja["test_acc"])
+                == (jb["train_acc"], jb["test_acc"]),
+                "17c the killed-and-resumed trace equals the straight one")
+        lines = {s: [json.loads(ln) for ln in
+                     (qd / f"{s}.launches").read_text().splitlines()]
+                 for s in ("lstm_mh_killed", "lstm_mh_straight",
+                           "ess_fused")}
+        resumed = lines["lstm_mh_killed"][0]["lstm_fused"]
+        require([ln["lstm_fused"] for ln in lines["lstm_mh_straight"]]
+                == [Q_LSTM_STEPS] and len(lines["lstm_mh_killed"]) == 1
+                and resumed % Q_LSTM_CHUNK == 0
+                and 0 < resumed < Q_LSTM_STEPS,
+                f"17c one lstm_fused launch a superstep: the straight run "
+                f"{lines['lstm_mh_straight']}, the resumed attempt {resumed}")
+        require(all(lines["ess_fused"][0][k] > 0
+                    for k in ("fused_chain_all", "fused_chain_mp_all")),
+                f"17c the fused ESS stage's chain kernels: "
+                f"{lines['ess_fused']}")
+        for got in lines.values():
+            for ln in got:
+                add(ln)
+        # the summaries count the stages' supersteps
+        cif = json.loads((qd / "cifar" / "summary.json").read_text())
+        bnn = json.loads((qd / "bnn_flagship" / "bnn_flagship.json")
+                         .read_text())
+        mn = json.loads((qd / "mnist" / "summary.json").read_text())
+        steps = {"cifar_sp_hmc": cif["sp_hmc"]["steps"],
+                 "cifar_pmp_hmc": cif["pmp_hmc"]["steps"],
+                 "bnn_sp_hmc": bnn["sp_hmc"]["steps"],
+                 "bnn_pmp_hmc": bnn["pmp_hmc"]["steps"],
+                 "mnist_lstm_mh_kernel": mn[f"{stem}@kernel"]["steps"]}
+        require(steps == {"cifar_sp_hmc": Q_CIFAR_STEPS,
+                          "cifar_pmp_hmc": Q_CIFAR_STEPS,
+                          "bnn_sp_hmc": Q_BNN_STEPS,
+                          "bnn_pmp_hmc": Q_BNN_STEPS,
+                          "mnist_lstm_mh_kernel": Q_LSTM_STEPS},
+                f"17c the summaries' step counts: {steps}")
+        # a second run of the queue starts nothing
+        n_attempts = sum(p.read_text().count("=== attempt")
+                         for p in state.glob("*.log"))
+        files = sorted(str(p) for p in qd.rglob("*"))
+        t1 = time.perf_counter()
+        rc2 = rp.main(str(qpath))
+        rerun_s = time.perf_counter() - t1
+        require(rc2 == 0 and n_attempts == len(stages) + 1
+                and sum(p.read_text().count("=== attempt")
+                        for p in state.glob("*.log")) == n_attempts
+                and sorted(str(p) for p in qd.rglob("*")) == files,
+                "17c a second run of the queue starts no stage")
+        ess_rows = json.loads((qd / "ess_fused" / "ess_msjd.json")
+                              .read_text())["rows"]
+        ess_dt = np.load(qd / "ess_fused" / "ess_msjd.npz")["rows"][:, 2]
+        print(json.dumps({"phase17c": {
+            "wall_s": queue["wall_s"], "rerun_s": rerun_s,
+            "stages": {k: {"wall_s": d["wall_s"], "attempts": d["attempts"]}
+                       for k, d in done.items()},
+            "killed_resumed_launches": resumed,
+            "steps": steps,
+            "steady_ms_per_superstep": {
+                "cifar_sp_hmc": cif["sp_hmc"]["steady_ms_per_superstep"],
+                "cifar_pmp_hmc": cif["pmp_hmc"]["steady_ms_per_superstep"],
+                "bnn_sp_hmc": bnn["sp_hmc"]["steady_ms_per_superstep"],
+                "bnn_pmp_hmc": bnn["pmp_hmc"]["steady_ms_per_superstep"],
+                "mnist_lstm_mh_kernel":
+                    mn[f"{stem}@kernel"]["steady_ms_per_superstep"]},
+            "ess_fused_cell_wall_s": dict(zip(ess_rows, ess_dt.tolist())),
+            "launches": lines,
+            "beside": "17a and 17b", "device": name, "power": smi}}))
+
+    # 17d: the small-P profile at its defaults, the card to itself
+    prof = script("scripts/profile_smallp_torch.py")
+    reset_launches()
+    got = prof.main()
+    add(launches)
+    require(got["launches"] == {"linreg_rss": got["iters"]},
+            f"17d one rss_kernel launch a superstep: {got['launches']}")
+    require(any("rss_kernel" in n for n, _ in got["top"]),
+            "17d the trace names rss_kernel")
+    print(json.dumps({"phase17d": {
+        "wall_us_per_superstep": got["wall_us_per_iter"],
+        "device_us_per_superstep": got["traced_us_per_iter"],
+        "top": [(n[:80], us) for n, us in got["top"][:10]],
+        "device": name, "power": smi}}))
+    print(json.dumps({"phase17_reduced": [
+        f"run_zoo MNIST num_steps {ZOO_MNIST_STEPS} (run_zoo's 2000)",
+        f"queue MNIST-LSTM MH num_steps {Q_LSTM_STEPS} in chunks of "
+        f"{Q_LSTM_CHUNK} (the paper's 1,000,000 in 5000), pretrain_steps "
+        f"{Q_LSTM_PRETRAIN} (mnist's 50)",
+        f"queue CIFAR SP-/PMP-HMC num_steps {Q_CIFAR_STEPS} in chunks of "
+        f"{Q_CIFAR_CHUNK} (the paper's 50,000), pretrain_steps "
+        f"{Q_CIFAR_PRETRAIN} (cifar_hmc's 30)",
+        f"queue BNN SP-/PMP-HMC num_steps {Q_BNN_STEPS} in chunks of "
+        f"{Q_BNN_CHUNK} (the paper's 30,000 in 1000)",
+        f"queue ess_msjd on the fused kernel only, num_steps {Q_ESS_STEPS}, "
+        f"burn_in {Q_ESS_BURN} (the paper's 1,000,000 and 2000), Ps 8,512",
+    ], "launches": counts}))
+    return counts
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3252,6 +3631,12 @@ def main() -> int:
         for k in kernels:
             if k["name"] in p16:
                 k["launches"] += p16[k["name"]]
+
+    with Phase("17 the examples, the zoo, the paper queue, the profile"):
+        p17 = phase17(dev, name, smi)
+        for k in kernels:
+            if k["name"] in p17:
+                k["launches"] += p17[k["name"]]
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,

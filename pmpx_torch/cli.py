@@ -16,8 +16,9 @@
     python -m pmpx_torch.cli plot results/mnist/run.npz --out run.pdf
     python -m pmpx_torch.cli doctor --probe-timeout 60
 
-Arbitrary ``--key value`` pairs are forwarded to the experiment's ``run()``
-(ints/floats/bools/tuples parsed from the string).  ``--device`` names the
+Installed (``pip install .``), the same CLI is the console script
+``pmpx-torch``.  Arbitrary ``--key value`` pairs are forwarded to the
+experiment's ``run()`` (ints/floats/bools/tuples parsed from the string).  ``--device`` names the
 device (CUDA unless given).  Results print as one JSON object.
 ``convert`` turns a ``TraceWriter`` file into ``.npy`` (through
 :mod:`pmpx_torch.runtime`); ``plot`` draws a saved trace's loss and

@@ -353,7 +353,7 @@ def bf16_chain(
     seed: int = 0,
     pretrain_steps: int = 50,
     proposal_chunk: int = 4,
-    out_dir: str = "artifacts/bf16_fidelity",
+    out_dir: str = "results/bf16_fidelity",
     device=None,
 ):
     """Chain-level bf16 fidelity at the paper protocol.

@@ -1337,3 +1337,103 @@ def test_nn_paths_captured_equal_the_loop(cuda, tmp_path, monkeypatch,
         if "wall" in k or k.endswith("_s") or "us_" in k or "ms" in k:
             continue
         assert got[k] == v, (label, k)
+
+
+# -- the entry points outside the package (examples/, scripts/*_torch.py) --
+
+def _entry(rel: str):
+    """An example or script of the repository, loaded by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / rel
+    spec = importlib.util.spec_from_file_location(f"_gpu_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_quickstart_example_on_card(cuda):
+    """The quickstart on the card and on the CPU: the same record and
+    sample shapes (the two generators' streams differ), finite values."""
+    import numpy as np
+
+    quick = _entry("examples/quickstart_torch.py")
+    got = quick.main(num_steps=2100, device=cuda)
+    want = quick.main(num_steps=2100, device="cpu")
+    assert got["records_shape"] == want["records_shape"] == (2100, 16, 2)
+    assert got["samples"].shape == want["samples"].shape == (1600, 2)
+    assert np.isfinite(got["samples"]).all() and got["msjd"] > 0
+
+
+@pytest.mark.gpu
+def test_bayesian_nn_example_on_card(cuda):
+    """bayesian_nn's captured chain on the card, its loss noise drawn
+    outside the graph: the CPU run's fields, finite, the loss falling."""
+    import math
+
+    ex = _entry("examples/bayesian_nn_torch.py")
+    got = ex.main(num_steps=20, device=cuda)
+    want = ex.main(num_steps=20, device="cpu")
+    assert set(got) == set(want)
+    assert all(math.isfinite(v) for v in got.values())
+    assert got["loss_last"] < got["loss_first"]
+
+
+@pytest.mark.gpu
+def test_run_zoo_on_card(cuda, tmp_path):
+    """The zoo's 12 cells, cut to a few supersteps over a few images: the
+    CPU run's rows, key for key and cell for cell."""
+    zoo = _entry("scripts/run_zoo_torch.py")
+    cells = [(f, dict(kw, num_steps=3, n_train=64, n_test=32,
+                      pretrain_steps=1)) for f, kw in zoo.CELLS]
+    got = zoo.main(cells, str(tmp_path / "card"), device=cuda)
+    want = zoo.main(cells, str(tmp_path / "cpu"), device="cpu")
+    for fam in ("mnist", "cifar"):
+        assert [set(r) for r in got[fam]] == [set(r) for r in want[fam]]
+        assert [r.get("model", "") + r["algo"] for r in got[fam]] == [
+            r.get("model", "") + r["algo"] for r in want[fam]]
+        assert (tmp_path / "card" / f"{fam}_zoo" / "summary.json").exists()
+
+
+@pytest.mark.gpu
+def test_run_paper_queue_on_card(cuda, tmp_path, monkeypatch):
+    """A tiny queue on the card: an argv stage of the MNIST-LSTM MH chain
+    through lstm_fused in chunks, then the summary; every stage done, the
+    summary's steps the stage's, and a second run starts nothing."""
+    import json
+
+    rp = _entry("scripts/run_paper_torch.py")
+    monkeypatch.setattr(rp, "STATE_DIR", str(tmp_path / "state"))
+    stem = "MH_alpha_0.0001_sample_number_6LSTM_N_7"
+    q = tmp_path / "q.json"
+    q.write_text(json.dumps({"stages": [
+        {"name": "lstm", "argv": [
+            "mnist", "--model", "LSTM", "--algo", "mh", "--lstm-kernel",
+            "true", "--n-train", "256", "--n-test", "64", "--num-steps",
+            "6", "--chunk-steps", "2", "--pretrain-steps", "0", "--resume",
+            "true", "--out-dir", str(tmp_path / "mnist_kernel")]},
+        {"name": "summarize", "cmd": ["scripts/summarize_paper_torch.py",
+                                      "mnist", str(tmp_path)]}]}))
+    assert rp.main(str(q)) == 0
+    state = tmp_path / "state"
+    assert {p.name for p in state.glob("*.done")} == {"lstm.done",
+                                                      "summarize.done"}
+    summary = json.loads((tmp_path / "mnist" / "summary.json").read_text())
+    assert summary[f"{stem}@kernel"]["steps"] == 6
+    logs = {p: p.read_text() for p in state.glob("*.log")}
+    assert rp.main(str(q)) == 0
+    assert {p: p.read_text() for p in state.glob("*.log")} == logs
+
+
+@pytest.mark.gpu
+def test_profile_smallp_on_card(cuda, capsys):
+    """The small-P profile: one rss_kernel launch a superstep in the timed
+    run, the card's kernels in its table."""
+    prof = _entry("scripts/profile_smallp_torch.py")
+    got = prof.main(P=4, n_data=500, iters=50, device=cuda)
+    assert got["launches"] == {"linreg_rss": 50}
+    assert got["category"] == "kernel"
+    assert any("rss_kernel" in name for name, _ in got["top"])
+    assert "device total us/iter" in capsys.readouterr().out
