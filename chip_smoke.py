@@ -133,11 +133,14 @@ Phases, each printing its wall time:
    for bit and one ``linreg_rss`` launch a superstep counted per replay;
    16b. ``resume_chain`` in 4 chunks (one graph) bit-equal to the eager
    chain and its checkpoint's generator state; 16c. the sweep's µs per
-   superstep captured and eager (CUDA events, alternating), and a
-   profiler trace of each (kernels and device busy µs a superstep, idle
-   share); 16d. the MNIST-LSTM MH chain through ``lstm_fused`` at full
-   batch, captured against eager (bit for bit, µs and kernels a
-   superstep); and which supersteps of the whole run went eager, and why;
+   superstep captured and eager (CUDA events, alternating), a profiler
+   trace of each (kernels and device busy µs a superstep), and each run
+   under ``profiling.recording()``, untraced: the card's share outside the
+   superstep's own work (``outside_chain_pct``), the host µs a call and
+   the device µs a superstep of the replays; 16d. the MNIST-LSTM MH chain
+   through ``lstm_fused`` at full batch, captured against eager (bit for
+   bit, µs and kernels a superstep); and which supersteps of the whole run
+   went eager, and why;
 17. the repo's entry points outside the package, as a user runs them
    (the step counts cut, listed in its JSON line): 17a. the two examples
    (``examples/quickstart_torch.py``, ``examples/bayesian_nn_torch.py``)
@@ -420,7 +423,8 @@ P15_HMC_TOL = 1e-5
 # and P16_UNROLL with a tail), and a resume in P16_CHUNKS chunks; the
 # sweep's us per superstep both ways over bench.SWEEP_ITERS supersteps,
 # each timed P16_REPS times, alternating; and a profiler trace of
-# P16_TRACE supersteps of each (kernels a superstep, idle share)
+# P16_TRACE supersteps of each (kernels a superstep), and a run of as
+# many under profiling.recording() (the runner's spans)
 P16_STEPS, P16_UNROLL, P16_CHUNKS = 40, 3, 4
 P16_REPS, P16_TRACE = 2, 50
 # 16d: the MNIST-LSTM MH chain through lstm_fused (60,000 stand-ins)
@@ -2001,7 +2005,9 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
     """The compiled chain: run_chain (a replayed CUDA graph) against its
     plain version, the eager loop, on the benchmark cell.  Returns the
     phase's launches of the captured runs, by kernel."""
+    from benchmark.metrics._spans import host_us, outside_pct
     from pmpx_torch import checkpoint as ck
+    from pmpx_torch import profiling
     from pmpx_torch.kernels import launches, reset_launches
     from pmpx_torch.samplers import base, pmp
 
@@ -2126,13 +2132,32 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
             prof["busy_us_per_superstep"] = (prof["device_busy_us"]
                                              / P16_TRACE)
             prof["supersteps"] = P16_TRACE
+            profiling.reset()
+            with profiling.recording():
+                f(P16_TRACE)
+            found = profiling.spans()
+            profiling.reset()
+            prof["outside_chain_pct"] = outside_pct(found)
+            prof["launch_host_us"] = host_us(found)
+            prof["chain_us_per_superstep"] = sum(
+                s["device_end_us"] - s["device_start_us"] for s in found
+                if s["name"] == "chain.replay") / P16_TRACE
             profiles[k] = prof
             print(json.dumps({"profile": f"sweep_{k}", **prof}))
-        require(chain.chunks == graphs, "16c the timed and traced runs "
-                "only replayed (no capture after the warm-up)")
-    require(profiles["captured"]["idle_share"]
-            < profiles["eager"]["idle_share"],
-            "16c the captured sweep leaves the card idle less")
+        require(chain.chunks == graphs, "16c the timed, traced and recorded "
+                "runs only replayed (no capture after the warm-up)")
+    for k, p in profiles.items():
+        require(0.0 <= p["outside_chain_pct"] <= 100.0,
+                f"16c the {k} sweep's outside_chain_pct in [0, 100]: "
+                f"{p['outside_chain_pct']!r}")
+    # in the eager loop a superstep's span also holds the card's idle
+    # between the host's launches, so its share is no idle yardstick: the
+    # device time a superstep compares the two
+    require(profiles["captured"]["outside_chain_pct"] < 10.0,
+            "16c the captured sweep's card time is >= 90% its replays")
+    require(profiles["captured"]["chain_us_per_superstep"]
+            < profiles["eager"]["chain_us_per_superstep"],
+            "16c the captured sweep's supersteps take the card less time")
 
     # 16d: a device-bound NN cell, the MNIST-LSTM MH chain through
     # lstm_fused at full batch, captured against eager
@@ -2224,13 +2249,12 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
             k: p["kernels_per_superstep"] for k, p in profiles.items()},
         "busy_us_per_superstep": {
             k: p["busy_us_per_superstep"] for k, p in profiles.items()},
-        # the trace's own (its tracing slows each replayed kernel's
-        # launch), and the device busy µs over the CUDA-event µs
-        "idle_share_traced": {
-            k: p["idle_share"] for k, p in profiles.items()},
-        "idle_share_timed": {
-            k: 1.0 - p["busy_us_per_superstep"] / min(times[k])
-            for k, p in profiles.items()},
+        # untraced, under profiling.recording(): the card's share outside
+        # the superstep's own work, the host µs a call
+        "outside_chain_pct": {
+            k: p["outside_chain_pct"] for k, p in profiles.items()},
+        "launch_host_us": {
+            k: p["launch_host_us"] for k, p in profiles.items()},
         "eager": EAGER,
         "device": name, "power": smi}))
     return phase_counts

@@ -159,9 +159,10 @@ def _own_kernels() -> set:
 def profile_path(fn) -> dict:
     """Where the time of ``fn()`` goes on the card, from a
     ``torch.profiler`` trace: the kernels launched (count, summed device
-    time, the five largest by time), the span from the first kernel's start
-    to the last one's end, the host wall time, and the device's idle share
-    of the span."""
+    time, the five largest by time, the port's own) and the host wall time.
+    The trace gives no idle share: the profiler stretches graph replays;
+    the runners' spans (:mod:`pmpx_torch.profiling`) time the card
+    untraced."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -180,8 +181,6 @@ def profile_path(fn) -> dict:
     if not kernels:
         raise RuntimeError("the profiler saw no kernel on the card")
     busy = sum(e["dur"] for e in kernels)
-    span = (max(e["ts"] + e["dur"] for e in kernels)
-            - min(e["ts"] for e in kernels))
     by_name: dict = {}
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
@@ -195,8 +194,8 @@ def profile_path(fn) -> dict:
             if base.split("<")[0] in mine:
                 own[base] = us
     return {
-        "kernels": len(kernels), "device_busy_us": busy, "span_us": span,
-        "wall_us": wall_us, "idle_share": 1.0 - busy / span,
+        "kernels": len(kernels), "device_busy_us": busy,
+        "wall_us": wall_us,
         "top": [{"name": n[:80], "us": us} for n, us in top],
         # the port's own kernels (pmpx_torch/csrc keeps them in anonymous
         # namespaces, as PyTorch keeps some of its own)

@@ -8,7 +8,8 @@ on a CPU tensor does not count).  ``fused_chain`` counts one chain with
 ``fused_chain_farm`` a launch of a farm of chains in any mode,
 ``fused_chain_stamped`` a launch from the stamped chain library (phase
 clocks; a measurement, never the main path), ``lstm_fused`` one launch
-of the LSTM forward for P parameter sets.
+of the LSTM forward for P parameter sets.  The dict is also the
+``launches`` family of :data:`pmpx_torch.profiling.counters`.
 """
 
 launches = {

@@ -44,6 +44,7 @@ import torch
 
 from pmpx_torch import _build
 from pmpx_torch.kernels import launches
+from pmpx_torch.profiling import span
 
 __all__ = [
     "supports",
@@ -725,39 +726,46 @@ def make_fused_chain(target, cfg, *, chunk: int = 512, rng: str = "kernel",
             raise ValueError("uin and uemit replace the uniforms of "
                              "rng='input'")
         kernel_rng = rng == "kernel" and dev.type == "cuda"
-        if kernel_rng:
-            seeds = torch.randint(
-                0, 2**31 - 1, (n_chunks, 1), generator=generator,
-                device=dev, dtype=torch.int32,
-            )
-        theta = theta0.to(device=dev, dtype=torch.float32).contiguous()
-        parts = []
-        for c in range(n_chunks):
+        with span("fused.run", dev, steps=num_steps):
             if kernel_rng:
-                kw = dict(seed=seeds[c])
-            elif uin is not None:
-                kw = dict(uin=uin[c])
-                if emit_all:
-                    kw["uemit"] = uemit[c]
-            else:
-                kw = dict(uin=1.0 - torch.rand(
-                    (chunk * U_ROWS, L), generator=generator, device=dev))
-                if emit_all:
-                    kw["uemit"] = 1.0 - torch.rand(
-                        (chunk, L), generator=generator, device=dev)
-            out = chain_chunk(xg, yg, theta, steps=chunk, emit=emit, **kw,
-                              **consts)
-            theta = out[1]
-            parts.append(out[0] if not emit_all else (out[0], out[2]))
-        if not emit_all:
-            return torch.cat([tr[:3] for tr in parts], dim=1).T[:num_steps]
-        meta = torch.cat([m for m, _ in parts], dim=1)[:, :num_steps]
-        return {
-            "root": meta[:3].T,
-            "jumps": meta[3],
-            "last": meta[4:7].T,
-            "emit_b0": torch.cat([b for _, b in parts], dim=0)[
-                :num_steps].T,
-        }
+                with span("fused.seeds", dev):
+                    seeds = torch.randint(
+                        0, 2**31 - 1, (n_chunks, 1), generator=generator,
+                        device=dev, dtype=torch.int32,
+                    )
+            theta = theta0.to(device=dev, dtype=torch.float32).contiguous()
+            parts = []
+            for c in range(n_chunks):
+                if kernel_rng:
+                    kw = dict(seed=seeds[c])
+                elif uin is not None:
+                    kw = dict(uin=uin[c])
+                    if emit_all:
+                        kw["uemit"] = uemit[c]
+                else:
+                    with span("fused.seeds", dev):
+                        kw = dict(uin=1.0 - torch.rand(
+                            (chunk * U_ROWS, L), generator=generator,
+                            device=dev))
+                        if emit_all:
+                            kw["uemit"] = 1.0 - torch.rand(
+                                (chunk, L), generator=generator, device=dev)
+                with span("fused.kernel", dev, steps=chunk):
+                    out = chain_chunk(xg, yg, theta, steps=chunk, emit=emit,
+                                      **kw, **consts)
+                theta = out[1]
+                parts.append(out[0] if not emit_all else (out[0], out[2]))
+            with span("fused.gather", dev):
+                if not emit_all:
+                    return torch.cat([tr[:3] for tr in parts],
+                                     dim=1).T[:num_steps]
+                meta = torch.cat([m for m, _ in parts], dim=1)[:, :num_steps]
+                return {
+                    "root": meta[:3].T,
+                    "jumps": meta[3],
+                    "last": meta[4:7].T,
+                    "emit_b0": torch.cat([b for _, b in parts], dim=0)[
+                        :num_steps].T,
+                }
 
     return run

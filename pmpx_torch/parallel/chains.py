@@ -46,6 +46,7 @@ import torch.distributed as dist
 from pmpx_torch._device import resolve_device
 from pmpx_torch.kernels import fused_chain as fc
 from pmpx_torch.parallel.mesh import AXIS_CHAINS, AXIS_DATA, all_gather_cat
+from pmpx_torch.profiling import span
 from pmpx_torch.samplers.base import run_chain
 
 __all__ = ["chain_generators", "make_chain_farm_fused", "run_chains_fused",
@@ -209,27 +210,36 @@ def make_chain_farm_fused(target, cfg, num_steps: int, mesh=None, *,
             uin = None if uin is None else uin[:, blk]
         n_chunks = -(-num_steps // chunk)
         kernel_rng = rng == "kernel" and dev.type == "cuda"
-        if kernel_rng:
-            seeds = torch.cat([
-                torch.randint(0, 2**31 - 1, (n_chunks, 1), generator=g,
-                              device=dev, dtype=torch.int32)
-                for g in generators], dim=1)
-        parts = []
-        for c in range(n_chunks):
+        many = {"chains": len(generators)} if len(generators) > 1 else {}
+        with span("farm.run", dev, steps=num_steps, **many):
             if kernel_rng:
-                kw = dict(seed=seeds[c])
-            elif uin is not None:
-                kw = dict(uin=uin[c])
-            else:
-                kw = dict(uin=torch.stack([
-                    1.0 - torch.rand((chunk * fc.U_ROWS, L), generator=g,
-                                     device=dev)
-                    for g in generators]))
-            tr, theta = fc.chain_chunk(xg, yg, theta, steps=chunk, **kw,
-                                       **consts)
-            parts.append(tr[:, :3])
-        roots = torch.cat(parts, dim=2)[:, :, :num_steps].transpose(1, 2)
-        return roots if mesh is None else all_gather_cat(roots, group)
+                with span("farm.seeds", dev):
+                    seeds = torch.cat([
+                        torch.randint(0, 2**31 - 1, (n_chunks, 1),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32)
+                        for g in generators], dim=1)
+            parts = []
+            for c in range(n_chunks):
+                if kernel_rng:
+                    kw = dict(seed=seeds[c])
+                elif uin is not None:
+                    kw = dict(uin=uin[c])
+                else:
+                    with span("farm.seeds", dev):
+                        kw = dict(uin=torch.stack([
+                            1.0 - torch.rand((chunk * fc.U_ROWS, L),
+                                             generator=g, device=dev)
+                            for g in generators]))
+                with span("farm.kernel", dev, steps=chunk, **many):
+                    tr, theta = fc.chain_chunk(xg, yg, theta, steps=chunk,
+                                               **kw, **consts)
+                parts.append(tr[:, :3])
+            with span("farm.gather", dev):
+                roots = torch.cat(parts, dim=2)[:, :, :num_steps]
+                roots = roots.transpose(1, 2)
+                return roots if mesh is None else all_gather_cat(roots,
+                                                                 group)
 
     return run
 

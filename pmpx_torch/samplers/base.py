@@ -10,11 +10,13 @@ supersteps, PyTorch's counterpart of ``pmpx``'s ``lax.scan`` under one
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import torch
 
 from pmpx_torch.kernels import launches
+from pmpx_torch.profiling import counters, span
 
 __all__ = ["CompiledChain", "Target", "Tempered", "batch_log_prob",
            "compile_chain", "declare_eager", "eager_reason", "run_chain",
@@ -227,6 +229,12 @@ class CompiledChain:
     :func:`run_chain_eager` at each run.  ``capture=False`` runs each
     chunk's body eagerly instead of replaying it (the CPU tests of the
     runner).
+
+    A run is the span ``chain.run`` (:mod:`pmpx_torch.profiling`), which
+    holds ``chain.capture`` (the first run's step 0 and captures, whose
+    host seconds every run adds to ``counters["capture_s"]``), one
+    ``chain.replay`` a replay (``steps`` its supersteps) and one
+    ``chain.records`` for each copy of records into the outputs.
     """
 
     def __init__(self, superstep, generator, state_like, collect=None,
@@ -316,6 +324,12 @@ class CompiledChain:
         if _layout(state0) != self.layout:
             raise ValueError(f"the chain of {_name(self.superstep)} was "
                              "compiled for another state layout")
+        dev = self.static[0].device if self.static else None
+        with span("chain.run", dev, steps=num_steps):
+            return self._run(generator, state0, num_steps, log_every,
+                             log_fn, dev)
+
+    def _run(self, generator, state0, num_steps, log_every, log_fn, dev):
         for dst, src in zip(self.static, _leaves(state0)):
             dst.copy_(src)
         if generator is not None:
@@ -323,34 +337,40 @@ class CompiledChain:
         log = log_fn or _print_step
         first, start = None, 0
         if not self.chunks:
-            first, start = self._first_step(), 1
-            if log_every:
-                log(0, _clone(self._state()), _clone(first[0]))
-            self._compile()
+            t0 = time.perf_counter()
+            with span("chain.capture", dev):
+                first, start = self._first_step(), 1
+                if log_every:
+                    log(0, _clone(self._state()), _clone(first[0]))
+                self._compile()
+            counters["capture_s"] += time.perf_counter() - t0
         outs = tree = None
         if first is not None:
             tree = first[1]
-            outs = [torch.empty((num_steps, *r.shape), dtype=r.dtype,
-                                device=r.device) for r in _leaves(tree)]
-            for dst, src in zip(outs, _leaves(tree)):
-                dst[0].copy_(src)
+            with span("chain.records", dev):
+                outs = [torch.empty((num_steps, *r.shape), dtype=r.dtype,
+                                    device=r.device) for r in _leaves(tree)]
+                for dst, src in zip(outs, _leaves(tree)):
+                    dst[0].copy_(src)
         pos = start
         for k in _plan(start, num_steps, self.unroll, log_every):
             chunk = self.chunks[k]
-            if chunk.graph is None:
-                chunk.recs, chunk.last = self._body(k)
-            else:
-                chunk.graph.replay()
-                for name, n in chunk.counts.items():
-                    launches[name] += n
+            with span("chain.replay", dev, steps=k):
+                if chunk.graph is None:
+                    chunk.recs, chunk.last = self._body(k)
+                else:
+                    chunk.graph.replay()
+                    for name, n in chunk.counts.items():
+                        launches[name] += n
             leaves = _leaves(chunk.recs)
-            if outs is None:
-                tree = chunk.recs
-                outs = [torch.empty((num_steps, *r.shape[1:]),
-                                    dtype=r.dtype, device=r.device)
-                        for r in leaves]
-            for dst, src in zip(outs, leaves):
-                dst[pos:pos + k].copy_(src)
+            with span("chain.records", dev):
+                if outs is None:
+                    tree = chunk.recs
+                    outs = [torch.empty((num_steps, *r.shape[1:]),
+                                        dtype=r.dtype, device=r.device)
+                            for r in leaves]
+                for dst, src in zip(outs, leaves):
+                    dst[pos:pos + k].copy_(src)
             pos += k
             if log_every and (pos - 1) % log_every == 0:
                 log(pos - 1, _clone(self._state()), _clone(chunk.last))
@@ -449,14 +469,21 @@ def run_chain_eager(
 ):
     """:func:`run_chain`'s plain version: a Python loop that launches
     every superstep's kernels from the host (``unroll`` changes nothing
-    here).  The CPU path, and the oracle of the captured chain."""
+    here).  The CPU path, and the oracle of the captured chain.  Its spans
+    are :class:`CompiledChain`'s, with a ``chain.replay`` a superstep and
+    one ``chain.records`` for the stacking of the records."""
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
-    state = state0
-    recs = []
-    for step in range(num_steps):
-        state, out = superstep(generator, state)
-        if log_every and step % log_every == 0:
-            (log_fn or _print_step)(step, state, out)
-        recs.append(collect(state, out) if collect is not None else out)
-    return state, _stack(recs)
+    dev = next((t.device for t in _leaves(state0)
+                if isinstance(t, torch.Tensor)), None)
+    with span("chain.run", dev, steps=num_steps):
+        state = state0
+        recs = []
+        for step in range(num_steps):
+            with span("chain.replay", dev, steps=1):
+                state, out = superstep(generator, state)
+            if log_every and step % log_every == 0:
+                (log_fn or _print_step)(step, state, out)
+            recs.append(collect(state, out) if collect is not None else out)
+        with span("chain.records", dev):
+            return state, _stack(recs)

@@ -1437,3 +1437,84 @@ def test_profile_smallp_on_card(cuda, capsys):
     assert got["category"] == "kernel"
     assert any("rss_kernel" in name for name, _ in got["top"])
     assert "device total us/iter" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_runner_spans_on_the_card(cuda, monkeypatch):
+    """Under profiling.recording(): a compiled chain captures, and no
+    timing event is recorded while a stream captures (a span opened during
+    a capture has no device times); every span's device interval is
+    ordered, non-negative and inside its parent's, and siblings follow one
+    another; the fused chain's, the farm's and the compiled chain's draws
+    are bit-equal with recording on and off."""
+    from pmpx_torch import profiling
+    from pmpx_torch.parallel import chains as tchains
+    from pmpx_torch.samplers import base, pmp
+
+    capturing = []
+    record = torch.cuda.Event.record
+
+    def spy(ev, stream=None):
+        capturing.append(torch.cuda.is_current_stream_capturing())
+        return record(ev, stream)
+
+    monkeypatch.setattr(torch.cuda.Event, "record", spy)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    x, y = make_synthetic_linreg(g, 20_000)
+    fused_t = BayesLinReg(x, y, temper=0.01, method="fused", device=cuda)
+    sweep_t = BayesLinReg(x, y, temper=0.01, method="sweep", device=cuda)
+    cfg = PMPConfig(N=1, depth=6, step_size=0.05, selection="all_first")
+    theta0 = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    fused = fc.make_fused_chain(fused_t, cfg, chunk=100)
+    farm = tchains.make_chain_farm_fused(fused_t, cfg, 250, chunk=100)
+    sup = pmp.make_superstep(sweep_t, cfg)
+
+    def gen():
+        out = torch.Generator(device=cuda)
+        out.manual_seed(11)
+        return out
+
+    def runs():
+        chain = base.compile_chain(sup, gen(), theta0, lambda s, o: s, 3)
+        return [fused(gen(), theta0, 250),
+                farm(tchains.chain_generators(2, 4, cuda),
+                     theta0.expand(4, 3)),
+                *chain.run(gen(), theta0, 10),  # the capture
+                *chain.run(gen(), theta0, 10)]  # replays only
+
+    profiling.reset()
+    with torch.no_grad():
+        off = runs()
+        assert profiling.spans() == []
+        with profiling.recording():
+            on = runs()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                with profiling.span("captured", cuda):
+                    torch.zeros(4, device=cuda).add_(1)
+    torch.cuda.synchronize()
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    assert capturing and not any(capturing)
+    found = profiling.spans()
+    by_id = {s["id"]: s for s in found}
+    inside = [s for s in found if s["name"] == "captured"]
+    assert len(inside) == 1 and inside[0]["device_start_us"] is None
+    timed = [s for s in found if s["name"] != "captured"]
+    assert {s["name"] for s in timed} >= {
+        "fused.run", "fused.seeds", "fused.kernel", "fused.gather",
+        "farm.run", "farm.seeds", "farm.kernel", "farm.gather",
+        "chain.run", "chain.capture", "chain.replay", "chain.records"}
+    for s in timed:
+        assert 0.0 <= s["device_start_us"] <= s["device_end_us"]
+        if s["parent"] is not None:
+            p = by_id[s["parent"]]
+            assert p["device_start_us"] <= s["device_start_us"]
+            assert s["device_end_us"] <= p["device_end_us"]
+    order = sorted(timed, key=lambda s: s["host_start_us"])
+    for parent in {s["parent"] for s in timed}:
+        kids = [s for s in order if s["parent"] == parent]
+        for a, b in zip(kids, kids[1:]):
+            assert a["device_end_us"] <= b["device_start_us"]
+    profiling.reset()
