@@ -308,6 +308,22 @@ LSTM_LIB_TOL = 1e-4
 # phase 10: the MNIST path at scale="paper" (60,000 / 10,000 images,
 # pretrain 50, the paper's temper); the one cut is num_steps (the paper's
 # 1,000,000 for the LSTM, 500,000 for FC)
+# the binary superstep's tree kernels (kernels/pmp_tree.py) against their
+# plain versions, phase 2b: (label, chains, depth, d, selection, stabiliser):
+# the sweep cell's shape (one chain, and the skewness protocol's 64), the
+# LSTM cell's, all_uniform, rows past one block's copy (the grid-wide
+# gather) and the deepest tree one block holds.  A draw may differ from the
+# plain version's only where its uniform lies within TREE_TOL of a step of
+# the plain CDF (the two sum the CDF in other orders); log_accept agrees
+# within TREE_TOL.  The sweep and LSTM rows are timed for phase 6.
+TREE_CASES = (("sweep", 1, 10, 3, "all_first", "none"),
+              ("sweep_64", 64, 10, 3, "all_first", "none"),
+              ("lstm", 1, 3, 24_458, "single", "zscore"),
+              ("uniform", 8, 4, 3, "all_uniform", "none"),
+              ("gather", 2, 7, 1000, "all_uniform", "zscore"),
+              ("deepest", 2, 14, 2, "all_first", "none"))
+TREE_TIMED = ("sweep", "lstm")
+TREE_TOL = 1e-6
 MNIST_CELLS = (("LSTM", "pmp", 300), ("LSTM", "mp", 300), ("LSTM", "mh", 600),
                ("FC", "pmp", 600))
 MNIST_PROFILE = 5  # supersteps in each profiler trace of phase 10
@@ -355,6 +371,10 @@ BNN_STEPS, BNN_CHUNK = 30, 10
 LSTM_CKPT_STEPS, LSTM_CKPT_CHUNK = 20, 10
 # phase 12e: resilience at n = 100,000, a depth-5 binary tree (P = 32)
 RES_STEPS, RES_EVERY, RES_KILLS, RES_DEPTH = 3000, 500, 2, 5
+# ms the child sleeps after each chunk: a chunk of RES_EVERY supersteps takes
+# ~25 ms on the card since the tree kernels, too little for a SIGKILL to land
+# inside the run before it ends
+RES_THROTTLE_MS = 200
 # phase 12b-c's fallback gate where torch names an op on the path without a
 # deterministic CUDA version: the traces within this, relative
 RESUME_RTOL = 1e-5
@@ -424,9 +444,15 @@ P15_HMC_TOL = 1e-5
 # sweep's us per superstep both ways over bench.SWEEP_ITERS supersteps,
 # each timed P16_REPS times, alternating; and a profiler trace of
 # P16_TRACE supersteps of each (kernels a superstep), and a run of as
-# many under profiling.recording() (the runner's spans)
+# many under profiling.recording() (the runner's spans).  The timed
+# captured chain replays P16_SWEEP_UNROLL supersteps a graph: since the
+# tree kernels a superstep takes the card ~43 us, and a replay's own cost
+# (its launch, the generator's fills, the record copies, and under
+# recording the spans' timing events) is no longer small beside one
+# superstep, so the card's share in the replays is read where a replay
+# holds many
 P16_STEPS, P16_UNROLL, P16_CHUNKS = 40, 3, 4
-P16_REPS, P16_TRACE = 2, 50
+P16_REPS, P16_TRACE, P16_SWEEP_UNROLL = 2, 128, 64
 # 16d: the MNIST-LSTM MH chain through lstm_fused (60,000 stand-ins)
 P16_LSTM_STEPS, P16_LSTM_TRACE = 200, 20
 # and the peak memory of P16_FC_STEPS full-batch MNIST-FC PMP supersteps
@@ -490,6 +516,7 @@ STAMP_CELLS = (("mp", "root", 1023, 1), ("mp", "all", 511, 1),
 # the general kernel, its depth
 CHAIN_KERNEL = re.compile(
     r"chain_(binary|mp|general)_kernelILb([01])E(?:Li(\d+)E)?")
+TREE_KERNEL = re.compile(r"tree_(positions|select|gather)_kernel")
 
 
 class Phase:
@@ -676,14 +703,15 @@ def lstm_sass_mma(so: Path) -> dict:
 def ptxas_usage(log: str) -> dict:
     """Registers and static shared memory that ``ptxas -v`` reported for
     each chain kernel instantiation (CHAIN_KERNEL), under a readable label
-    such as ``chain_general_kernel<true, 3>``: {label: {"registers": r,
-    "smem_bytes": s}}."""
+    such as ``chain_general_kernel<true, 3>``, and for each tree kernel
+    (TREE_KERNEL): {label: {"registers": r, "smem_bytes": s}}."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = CHAIN_KERNEL.search(m.group(1))
-            fn = None if k is None else (
+            t = TREE_KERNEL.search(m.group(1))
+            fn = t.group(0) if t else None if k is None else (
                 f"chain_{k.group(1)}_kernel<{('false', 'true')[int(k.group(2))]}"
                 + (f", {k.group(3)}>" if k.group(3) else ">"))
         elif fn and "Used" in line:
@@ -954,6 +982,112 @@ def lstm_torch_state(post, theta) -> dict:
             "fc.bias": p["Dense_0.bias"]}
 
 
+def tree_launches(n: int, gather: bool = False) -> dict:
+    """The tree kernels' launches of n binary supersteps on the card
+    (kernels/pmp_tree.py): one of each side of the target call, and the
+    grid-wide gather where the emitted rows pass one block's copy."""
+    out = {"pmp_tree_positions": n, "pmp_tree_select": n}
+    if gather:
+        out["pmp_tree_gather"] = n
+    return out
+
+
+def phase2b(dev, bench) -> list:
+    """Phase 2b: the tree kernels against their plain versions (the torch
+    functions, on the card) at TREE_CASES, on a log-density of a
+    posterior's spread (weights of O(1-10), many that underflow in the
+    softmax): Y bit-equal, log_accept within TREE_TOL, a draw or root
+    different only where its uniform lies within TREE_TOL of a step of
+    the plain CDF, a repeat bit-equal.  Returns phase 6's rows, one a
+    kernel at the TREE_TIMED shapes: the card's ms a call (a CUDA graph of
+    calls, bench.graph_us), the plain version's (eager, between CUDA
+    events) and the bound (each byte read and written once at 3.35 TB/s;
+    the arithmetic, ~10 flops a node, is far below it)."""
+    from pmpx_torch.kernels import pmp_tree
+    from pmpx_torch.resample import categorical_many
+    from pmpx_torch.samplers import pmp
+    from pmpx_torch.samplers.stabilize import stabilize_logits
+
+    rows = {k: {"name": k, "route": "cuda",
+                "source": "pmpx_torch/csrc/pmp_tree.cu",
+                "replaces": None, "library_ms": None}
+            for k in ("pmp_tree_positions", "pmp_tree_select")}
+    for label, C, depth, d, selection, stabilizer in TREE_CASES:
+        P = 1 << depth
+        num = 1 if selection == "single" else P
+        cfg = pmp.PMPConfig(N=1, depth=depth, step_size=0.02,
+                            selection=selection, stabilizer=stabilizer)
+        g = torch.Generator(device=dev)
+        g.manual_seed(depth * 100 + C)
+        theta = torch.randn((C, d), generator=g, device=dev)
+        eps = torch.randn((C, P, d), generator=g, device=dev)
+        Y = pmp_tree.tree_positions(theta, eps, depth, cfg.step_size)
+        require(torch.equal(Y, pmp_tree.tree_positions_ref(
+            theta, eps, depth, cfg.step_size)),
+            f"2b {label}: Y bit-equal to tree_positions")
+        logpi = -((Y - theta[:, None]) ** 2).sum(-1) * (3000.0 / d)
+        u = torch.rand((C, num), generator=g, device=dev)
+        pick = torch.randint(0, P, (C,), generator=g, device=dev)
+        got = pmp_tree.tree_select(cfg, Y, logpi, u, pick)
+        again = pmp_tree.tree_select(cfg, Y, logpi, u, pick)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"2b {label}: a repeat bit-equal")
+        theta2, samples, root, logA, root_logp = got
+        want = pmp.log_accept_tree(Y, logpi, cfg.topology(),
+                                   cfg.transition())
+        la_err = (logA - want).abs().max().item()
+        logits = stabilize_logits(want, stabilizer, cfg.nan_guard)
+        cdf = torch.cumsum(torch.softmax(logits, -1), -1)
+        cdf = cdf / cdf[:, -1:]
+        pos = torch.searchsorted(cdf.contiguous(), u)
+        below = torch.take_along_dim(cdf, (pos - 1).clamp(0, P - 1), -1)
+        above = torch.take_along_dim(cdf, pos.clamp(0, P - 1), -1)
+        near = torch.minimum((u - below).abs(), (u - above).abs()) < TREE_TOL
+        draws = categorical_many(logits, num, u=u).long()
+        same = (samples == torch.take_along_dim(
+            Y, draws[..., None], dim=1)).all(-1)
+        slot = (pick if selection == "all_uniform"
+                else torch.zeros_like(pick))[:, None]
+        roots = (root.long() == draws.gather(1, slot)[:, 0]) | near.gather(
+            1, slot)[:, 0]
+        chain = torch.arange(C, device=dev)
+        print(f"2b {label}: C={C} P={P} d={d} {selection} {stabilizer}: "
+              f"max|log_accept err| {la_err:.3g}; draws equal "
+              f"{same.float().mean().item():.6f}, the rest near a step: "
+              f"{bool((same | near).all())}; roots {int(roots.sum())}/{C}")
+        require(la_err <= TREE_TOL, f"2b {label}: log_accept")
+        require(bool((same | near).all()) and bool(roots.all()),
+                f"2b {label}: draws and roots")
+        require(torch.equal(theta2, Y[chain, root.long()])
+                and torch.equal(root_logp, logpi[chain, root.long()]),
+                f"2b {label}: the root's row and log-density")
+        if label not in TREE_TIMED:
+            continue
+        rows_d = d if selection == "single" else (P + 1) * d
+        for kname, call, plain, nbytes in (
+                ("pmp_tree_positions",
+                 lambda: pmp_tree.tree_positions(theta, eps, depth, 0.02),
+                 lambda: pmp_tree.tree_positions_ref(theta, eps, depth, 0.02),
+                 4 * C * (d + 2 * P * d)),
+                ("pmp_tree_select",
+                 lambda: pmp_tree.tree_select(cfg, Y, logpi, u, pick),
+                 lambda: pmp_tree.tree_select_ref(
+                     cfg, Y, logpi, u,
+                     pick if selection == "all_uniform" else None),
+                 4 * C * (2 * P + num + 2 + 2 * rows_d))):
+            b_ms, b_by = bound(10.0 * C * P, nbytes)
+            cell = {"ms": bench.graph_us(call) / 1e3,
+                    "plain_ms": event_ms(plain, 20), "bound_ms": b_ms,
+                    "bound_by": b_by, "C": C, "P": P, "d": d}
+            print(f"{kname} at the {label} shape: {json.dumps(cell)}")
+            rows[kname].update(cell if label == "sweep"
+                               else {f"{label}_shape": cell})
+            rows[kname]["max_abs_err"] = max(
+                rows[kname].get("max_abs_err", 0.0),
+                la_err if kname == "pmp_tree_select" else 0.0)
+    return list(rows.values())
+
+
 def phase12(dev, name: str, smi: str, bench) -> dict:
     """Phase 12's runs and gates; returns its launches by kernel."""
     from pmpx_torch.config import SamplerSpec
@@ -1092,9 +1226,9 @@ def phase12(dev, name: str, smi: str, bench) -> dict:
             out, counts, wall = counted(f"12d {label}", lambda: mnist_mod.run(
                 num_steps=steps, chunk_steps=chunk, out_dir=d, **kw, **extra))
             ran = steps - (LSTM_CKPT_CHUNK if label == "resumed" else 0)
-            require(counts == {"lstm_fused": ran},
-                    f"12d {label}: one lstm_fused launch a superstep: "
-                    f"{counts}")
+            require(counts == {"lstm_fused": ran, **tree_launches(ran)},
+                    f"12d {label}: one lstm_fused launch and one of each "
+                    f"tree kernel a superstep: {counts}")
             stem = reference_style_name("PMP", 1e-4, steps, model="LSTM",
                                         N=7)
             losses[label] = load_trace(f"{d}/{stem}.npz")["loss"]
@@ -1110,13 +1244,16 @@ def phase12(dev, name: str, smi: str, bench) -> dict:
         res, _, wall = counted("12e", lambda: resilience.run(
             num_steps=RES_STEPS, checkpoint_every=RES_EVERY,
             kills=RES_KILLS, n_data=ESS_N, depth=RES_DEPTH,
-            kill_mode="sigkill", out_dir=f"{tmp}/resilience", device=dev))
+            throttle_ms=RES_THROTTLE_MS, kill_mode="sigkill",
+            out_dir=f"{tmp}/resilience", device=dev))
         require(res["bitwise_identical"] and res["rows"] == RES_STEPS,
                 "12e: the crash-looped trace bitwise identical")
         require(res["kills"] == RES_KILLS, f"12e: {RES_KILLS} kills")
         child = res["uninterrupted_launches"]
-        require(child == {"linreg_rss": RES_STEPS},
-                f"12e: the child's superstep launched linreg_rss: {child}")
+        require(child == {"linreg_rss": RES_STEPS,
+                          **tree_launches(RES_STEPS)},
+                f"12e: the child's superstep launched linreg_rss and the "
+                f"tree kernels: {child}")
         for k, v in child.items():
             p12[k] = p12.get(k, 0) + v
         print(json.dumps({"resilience": res, "wall_s": wall,
@@ -1544,9 +1681,9 @@ def phase14(dev, name: str, smi: str, bench) -> dict:
             "14a: a world of one rank on NCCL")
     got, counts = counted(lambda: par.run_chains_sharded(
         sup, 14, th8, P14_STEPS, mesh, _roots, device=dev))
-    require(counts == {"linreg_rss": P14_STEPS},
-            f"14a: one linreg_rss launch a superstep for the "
-            f"{P14_CHAINS} chains: {counts}")
+    require(counts == {"linreg_rss": P14_STEPS, **tree_launches(P14_STEPS)},
+            f"14a: one linreg_rss launch (and one of each tree kernel) a "
+            f"superstep for the {P14_CHAINS} chains: {counts}")
     want = par.run_chains_vmapped(sup, par.chain_generators(14, 1, dev)[0],
                                   th8, P14_STEPS, _roots)
     require(same(got, want), "14a: run_chains_sharded == "
@@ -1570,16 +1707,18 @@ def phase14(dev, name: str, smi: str, bench) -> dict:
     # the supersteps with collectives are declared eager: run_chain runs
     # them as the loop, bit-equal to the plain superstep's captured chain
     from pmpx_torch.samplers.base import eager_reason, run_chain
-    for label, s in (("ShardedLinReg", pmp.make_superstep(sh, cfg)),
-                     ("tree superstep", tsup)):
+    for label, s, tree in (
+            ("ShardedLinReg", pmp.make_superstep(sh, cfg),
+             tree_launches(P14_EAGER)),
+            ("tree superstep", tsup, {})):
         why = EAGER[label] = eager_reason(s, th0)
         require(why is not None, f"14a: the {label} is declared eager")
         gens = par.chain_generators(141, 2, dev)
         gens[1].set_state(gens[0].get_state())
         got, counts = counted(lambda: run_chain(s, gens[0], th0, P14_EAGER,
                                                 collect=_roots))
-        require(counts == {"linreg_rss": P14_EAGER}, f"14a: the {label}'s "
-                f"chain, one launch a superstep: {counts}")
+        require(counts == {"linreg_rss": P14_EAGER, **tree}, f"14a: the "
+                f"{label}'s chain, one launch a superstep: {counts}")
         require(same(got, run_chain(sup, gens[1], th0, P14_EAGER,
                                     collect=_roots)),
                 f"14a: the {label}'s eager chain == the plain superstep's "
@@ -1653,10 +1792,12 @@ def phase14(dev, name: str, smi: str, bench) -> dict:
     rss_each = 1 + 1 + P14_STEPS + P14_DATA_STEPS
     for r, res in enumerate(ranks):
         line = res["line"]
-        require(line["launches"] == {"linreg_rss": rss_each,
-                                     fc.FARM_KERNEL: 1},
+        require(line["launches"] == {
+                    "linreg_rss": rss_each, fc.FARM_KERNEL: 1,
+                    **tree_launches(P14_STEPS + P14_DATA_STEPS)},
                 f"14b rank {r}: linreg_rss once a density call "
-                f"({rss_each}) and one farm launch: {line['launches']}")
+                f"({rss_each}), the tree kernels once a binary superstep "
+                f"and one farm launch: {line['launches']}")
         for k, v in line["launches"].items():
             p14[k] = p14.get(k, 0) + v
         rel = ((res["data_logp"] - want).abs() / want.abs()).max().item()
@@ -2110,7 +2251,8 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
         sup = pmp.make_superstep(target, cfgs["pmp_binary_P1024"])
         g = torch.Generator(device=dev)
         g.manual_seed(1)
-        chain = base.compile_chain(sup, g, th0, bench._theta)
+        chain = base.compile_chain(sup, g, th0, bench._theta,
+                                   P16_SWEEP_UNROLL)
         runs = {"eager": lambda n: base.run_chain_eager(
                     sup, g, th0, n, collect=bench._theta),
                 "captured": lambda n: chain.run(g, th0, n)}
@@ -2569,8 +2711,10 @@ def phase17(dev, name: str, smi: str) -> dict:
     reset_launches()
     got = prof.main()
     add(launches)
-    require(got["launches"] == {"linreg_rss": got["iters"]},
-            f"17d one rss_kernel launch a superstep: {got['launches']}")
+    require(got["launches"] == {"linreg_rss": got["iters"],
+                                **tree_launches(got["iters"])},
+            f"17d one rss_kernel launch (and one of each tree kernel) a "
+            f"superstep: {got['launches']}")
     require(any("rss_kernel" in n for n, _ in got["top"]),
             "17d the trace names rss_kernel")
     print(json.dumps({"phase17d": {
@@ -2650,6 +2794,9 @@ def main() -> int:
                 require(any(k.startswith(f"chain_{mode}_kernel<{tf}")
                             for k in usage),
                         f"ptxas reported chain_{mode}_kernel<{tf}>")
+        for part in ("positions", "select", "gather"):
+            require(f"tree_{part}_kernel" in usage,
+                    f"ptxas reported tree_{part}_kernel")
         for label, use in usage.items():
             print(f"{label}: {use['registers']} registers, "
                   f"{use['smem_bytes']} bytes of static shared memory, 0 "
@@ -2723,6 +2870,9 @@ def main() -> int:
         print(f"edges: {len(RSS_EDGE_P) * len(RSS_EDGE_N) * 2} cases, "
               f"largest max|err|/max|rss| {worst[0]:.3g} at (P, n, n_valid) "
               f"{worst[1]}")
+
+    with Phase("2b pmp_tree vs plain"):
+        tree_rows = phase2b(dev, bench)
 
     target = bench.bench_target(dev)
     cfg = bench.bench_config()
@@ -2918,6 +3068,9 @@ def main() -> int:
               f"supersteps (CUDA events); launches {sweep_counts}")
         require(sweep_counts["linreg_rss"] == bench.SWEEP_ITERS,
                 "one linreg_rss launch per superstep")
+        require({k: sweep_counts[k] for k in tree_launches(0)}
+                == tree_launches(bench.SWEEP_ITERS),
+                "one launch of each tree kernel per superstep")
         posterior_check("sweep", sweep_trace, SWEEP_BURN, target, bench)
 
     with Phase("5 fused main path"):
@@ -2933,6 +3086,9 @@ def main() -> int:
 
     with Phase("6 kernel times"):
         kernels = []
+        for row in tree_rows:
+            row["launches"] = sweep_counts[row["name"]]
+            kernels.append(row)
         # linreg_rss at the sweep's shape: P = 1024 positions of one tree
         g = torch.Generator(device=dev)
         g.manual_seed(6)
@@ -3367,8 +3523,11 @@ def main() -> int:
             _, counts, _ = drive("sweep_all", trace="all", method="sweep",
                                  Ps=ESS_SWEEP_PS, num_steps=ESS_SWEEP_STEPS,
                                  burn_in=ESS_SWEEP_BURN)
-            require(set(counts) == {"linreg_rss"},
-                    f"the superstep cells on linreg_rss: {counts}")
+            require(set(counts) == {"linreg_rss", *tree_launches(0)}
+                    and counts["pmp_tree_positions"]
+                    == counts["pmp_tree_select"],
+                    f"the superstep cells on linreg_rss, the binary ones "
+                    f"on the tree kernels: {counts}")
             # the emit-all cell on conv_pmp's N = 7 x depth 3 tree (the
             # general mode; not in pmpx's P grid, which is binary and flat)
             reset_launches()
@@ -3472,8 +3631,12 @@ def main() -> int:
                     "device": name, "power": smi}))
                 require(bool(np.isfinite(losses).all()), f"{label} losses")
                 require(np.unique(losses).size > 1, f"{label}: chain moved")
-                require(counts == ({"lstm_fused": steps} if kernel else {}),
-                        f"{label}: one lstm_fused launch per superstep")
+                # FC's 567,434 parameters pass one block's copy
+                tree = (tree_launches(steps, gather=model == "FC")
+                        if algo == "pmp" else {})
+                require(counts == ({"lstm_fused": steps} if kernel else {})
+                        | tree, f"{label}: one lstm_fused launch per "
+                        f"superstep, and the binary tree's kernels: {counts}")
         for k in kernels:
             if k["name"] == "lstm_fused":
                 k["launches"] = sum(r["launches"].get("lstm_fused", 0)
@@ -3563,9 +3726,11 @@ def main() -> int:
             out, counts = drive("skewness", skewness, scale="paper",
                                 method="sweep", num_steps=SKEW_STEPS,
                                 checkpoints=SKEW_MARKS)
-            require(counts == {"linreg_rss": SKEW_STEPS},
-                    f"skewness: one linreg_rss launch a batched superstep "
-                    f"for all 64 chains: {counts}")
+            require(counts == {"linreg_rss": SKEW_STEPS,
+                               **tree_launches(SKEW_STEPS)},
+                    f"skewness: one linreg_rss launch (and one of each tree "
+                    f"kernel) a batched superstep for all 64 chains: "
+                    f"{counts}")
             require(all(math.isfinite(v) for v in out.values()),
                     "skewness: finite")
 
@@ -3591,9 +3756,9 @@ def main() -> int:
                         f"{worst} <= {MC_RHAT_MAX}")
             out, counts = drive("multichain_run", multichain, scale="paper",
                                 method="sweep")
-            require(counts == {"linreg_rss": 5000},
-                    f"multichain run: one launch a batched superstep: "
-                    f"{counts}")
+            require(counts == {"linreg_rss": 5000, **tree_launches(5000)},
+                    f"multichain run: one launch of each a batched "
+                    f"superstep: {counts}")
             require(out["rhat_beta0"] < 1.2
                     and abs(out["mean_beta0"] + 1.0) < 0.15,
                     "multichain run: R-hat and mean of beta0")

@@ -56,6 +56,8 @@ _SIGNATURES = {
          _I, _F, _F, _F, _F, _P]
     ),
     "pmpx_lstm_fused": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pmpx_tree_positions": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "pmpx_tree_select": [_P] * 10 + [_I] * 6 + [_P],
 }
 _STAMP_SIGNATURES = {
     "pmpx_fused_chain": _SIGNATURES["pmpx_fused_chain"],

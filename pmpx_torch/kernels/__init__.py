@@ -8,8 +8,12 @@ on a CPU tensor does not count).  ``fused_chain`` counts one chain with
 ``fused_chain_farm`` a launch of a farm of chains in any mode,
 ``fused_chain_stamped`` a launch from the stamped chain library (phase
 clocks; a measurement, never the main path), ``lstm_fused`` one launch
-of the LSTM forward for P parameter sets.  The dict is also the
-``launches`` family of :data:`pmpx_torch.profiling.counters`.
+of the LSTM forward for P parameter sets, ``pmp_tree_positions`` and
+``pmp_tree_select`` one launch of each side of a binary superstep's tree
+(all its chains), ``pmp_tree_gather`` the grid-wide gather of the
+emitted rows where they are too many for the select kernel's blocks.
+The dict is also the ``launches`` family of
+:data:`pmpx_torch.profiling.counters`.
 """
 
 launches = {
@@ -23,6 +27,9 @@ launches = {
     "fused_chain_farm": 0,
     "fused_chain_stamped": 0,
     "lstm_fused": 0,
+    "pmp_tree_positions": 0,
+    "pmp_tree_select": 0,
+    "pmp_tree_gather": 0,
 }
 
 

@@ -16,6 +16,12 @@ generator, evaluates all C*P states in one batched target call, and
 resamples each chain from its own weights (``pmpx`` vmaps a chain per key
 instead; the batch's chains have the same law, but chain c is not
 reproducible on its own).  A state of shape (d,) is one chain.
+
+On a card, a binary tree's steps 1, 3 and 4 run as two hand-written
+kernels, one on each side of the target call
+(:mod:`pmpx_torch.kernels.pmp_tree`); the functions here are their plain
+versions, and the path of the CPU, of N > 1 and of trees too deep for one
+block.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Optional
 import torch
 
 from pmpx_torch import tree as tree_mod
+from pmpx_torch.kernels import pmp_tree
 from pmpx_torch.resample import categorical, categorical_many
 from pmpx_torch.samplers.base import Target, batch_log_prob, declare_eager
 from pmpx_torch.samplers.stabilize import stabilize_logits
@@ -218,12 +225,49 @@ def make_superstep(target: Target, cfg: PMPConfig):
     ``pmpx`` superstep.  ``out`` holds ``samples``, ``log_accept``,
     ``root_index`` and ``root_logp`` (the chosen state's log-density),
     each with the state's leading axes.
+
+    A binary tree over float32 states on a card runs its tree in the two
+    kernels of :mod:`pmpx_torch.kernels.pmp_tree` (where
+    ``pmp_tree.engages``), one on each side of the target call, with the
+    same generator calls in the same order as the torch path: ``randn``
+    before the target, ``rand`` after it, ``randint`` last.
     """
     topo = cfg.topology()
     trans = cfg.transition()
     P, d = topo.P, target.d
 
+    def on_card(generator, theta, eps, u, pick):
+        batch = theta.shape[:-1]
+        C = theta[..., 0].numel()
+        scale = 1.0
+        if eps is None:
+            eps = torch.randn((*batch, P, d), generator=generator,
+                              device=theta.device, dtype=theta.dtype)
+            scale = cfg.step_size
+        Y = pmp_tree.tree_positions(theta.reshape(C, d).contiguous(),
+                                    eps.reshape(C, P, d).contiguous(),
+                                    cfg.depth, scale)
+        logpi = batch_log_prob(target, Y.reshape(-1, d), generator)
+        num = 1 if cfg.selection == "single" else P
+        if u is None:
+            u = torch.rand((*batch, num), generator=generator,
+                           device=Y.device, dtype=logpi.dtype)
+        if cfg.selection == "all_uniform" and pick is None:
+            pick = torch.randint(0, P, batch, generator=generator,
+                                 device=Y.device)
+        theta2, samples, root, logA, root_logp = pmp_tree.tree_select(
+            cfg, Y, logpi.reshape(C, P), u.reshape(C, num).contiguous(),
+            None if pick is None else pick.reshape(C).long())
+        return theta2.reshape(theta.shape), {
+            "samples": samples.reshape(*batch, -1, d),
+            "log_accept": logA.reshape(*batch, P),
+            "root_index": root.reshape(batch),
+            "root_logp": root_logp.reshape(batch),
+        }
+
     def superstep(generator, theta, *, eps=None, u=None, pick=None):
+        if pmp_tree.engages(cfg, theta):
+            return on_card(generator, theta, eps, u, pick)
         batch = theta.shape[:-1]
         if eps is None:
             eps = cfg.step_size * torch.randn(

@@ -1083,6 +1083,11 @@ def _captured_vs_eager(sup, theta0, steps, collect=None, unroll=1,
     return want
 
 
+def _tree_launches(n):
+    """The tree kernels' launches of n binary supersteps."""
+    return {"pmp_tree_positions": n, "pmp_tree_select": n}
+
+
 COMPILED_SPECS = {
     "pmp_binary": dict(algo="pmp", N=1, depth=10, selection="all_first"),
     "pmp_uniform": dict(algo="pmp", N=1, depth=4, selection="all_uniform"),
@@ -1101,7 +1106,7 @@ def test_compiled_chain_equals_the_eager_loop(cuda, name, unroll):
     (unroll 1, or 3 with a tail) against the eager loop: bit-equal
     records (through a dict and a tuple collect), final state and
     generator state, one linreg_rss launch a superstep counted per
-    replay."""
+    replay, and for a binary tree one launch of each tree kernel."""
     from pmpx_torch.config import SamplerSpec
 
     spec = dict(COMPILED_SPECS[name])
@@ -1116,14 +1121,16 @@ def test_compiled_chain_equals_the_eager_loop(cuda, name, unroll):
     collect = None if unroll == 1 else (lambda th, o: (th, o["root_logp"]))
     with torch.no_grad():
         counts = _captured_vs_eager(sup, theta0, 10, collect, unroll)
-    assert counts == {"linreg_rss": 10}
+    binary = spec["algo"] == "psp" or spec.get("N") == 1
+    assert counts == {"linreg_rss": 10,
+                      **(_tree_launches(10) if binary else {})}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("algo", ["pmp", "mh"])
 def test_compiled_chain_batched_chains(cuda, algo):
-    """C = 8 chains as one (8, 3) state: one launch a superstep, captured
-    against eager bit for bit."""
+    """C = 8 chains as one (8, 3) state: one launch a superstep (of each
+    kernel), captured against eager bit for bit."""
     from pmpx_torch.config import SamplerSpec
 
     sup = SamplerSpec(algo=algo, N=1, depth=3, step_size=0.02,
@@ -1135,7 +1142,8 @@ def test_compiled_chain_batched_chains(cuda, algo):
     with torch.no_grad():
         counts = _captured_vs_eager(sup, theta0, 12,
                                     lambda th, o: th, unroll=4)
-    assert counts == {"linreg_rss": 12}
+    assert counts == {"linreg_rss": 12,
+                      **(_tree_launches(12) if algo == "pmp" else {})}
 
 
 @pytest.mark.gpu
@@ -1215,32 +1223,49 @@ def test_capturing_a_host_read_raises(cuda):
 @pytest.mark.gpu
 def test_compiled_chain_launches_match_the_graph(cuda):
     """The launches run_chain counts are the kernels the card runs: each
-    replay adds the launches its capture saw, one linreg_rss kernel node a
-    wrapper call (bench.graph_nodes), so R supersteps count R launches."""
+    replay adds the launches its capture saw, one kernel node a wrapper
+    call (bench.graph_nodes) for linreg_rss and each tree kernel, so R
+    supersteps count R launches of each."""
     from pmpx_torch import bench
     from pmpx_torch.config import SamplerSpec
-    from pmpx_torch.kernels import reset_launches
+    from pmpx_torch.kernels import pmp_tree, reset_launches
     from pmpx_torch.samplers import base
 
     tgt = _linreg_sweep(cuda)
     b0, b1, _ = pad_proposals(torch.zeros(1024, device=cuda),
                               torch.zeros(1024, device=cuda))
-    nodes = bench.graph_nodes(lambda: batched_rss(
-        b0, b1, tgt.x2d, tgt.y2d, n_valid=tgt.n))
-    assert nodes["kernels"] == 1
+    cfg = PMPConfig(N=1, depth=10, step_size=0.02, selection="all_first")
+    theta = torch.zeros((1, 3), device=cuda)
+    eps = torch.zeros((1, 1024, 3), device=cuda)
+    Y = pmp_tree.tree_positions(theta, eps, 10)
+    logpi = torch.zeros((1, 1024), device=cuda)
+    # a generator of its own: an earlier capture may have left the default
+    # one registered with a graph
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    u = torch.rand((1, 1024), generator=g, device=cuda)
+    nodes = {
+        "linreg_rss": bench.graph_nodes(lambda: batched_rss(
+            b0, b1, tgt.x2d, tgt.y2d, n_valid=tgt.n)),
+        "pmp_tree_positions": bench.graph_nodes(
+            lambda: pmp_tree.tree_positions(theta, eps, 10, 0.02)),
+        "pmp_tree_select": bench.graph_nodes(
+            lambda: pmp_tree.tree_select(cfg, Y, logpi, u)),
+    }
+    assert {k: v["kernels"] for k, v in nodes.items()} == dict.fromkeys(
+        nodes, 1)
     sup = SamplerSpec(algo="pmp", N=1, depth=10, step_size=0.02,
                       selection="all_first").build(tgt)
     theta0 = torch.tensor([0.0, 0.0, 1.0], device=cuda)
-    g = torch.Generator(device=cuda)
-    g.manual_seed(0)
     chain = base.compile_chain(sup, g, theta0, unroll=2)
     with torch.no_grad():
         chain.run(g, theta0, 5)
         reset_launches()
         chain.run(g, theta0, 25)
-    assert chain.chunks[2].counts == {"linreg_rss": 2 * nodes["kernels"]}
-    assert chain.chunks[1].counts == {"linreg_rss": nodes["kernels"]}
-    assert launches["linreg_rss"] == 25 * nodes["kernels"]
+    assert chain.chunks[2].counts == dict.fromkeys(nodes, 2)
+    assert chain.chunks[1].counts == dict.fromkeys(nodes, 1)
+    assert {k: v for k, v in launches.items() if v} == dict.fromkeys(
+        nodes, 25)
 
 
 @pytest.mark.gpu
@@ -1429,11 +1454,12 @@ def test_run_paper_queue_on_card(cuda, tmp_path, monkeypatch):
 
 @pytest.mark.gpu
 def test_profile_smallp_on_card(cuda, capsys):
-    """The small-P profile: one rss_kernel launch a superstep in the timed
-    run, the card's kernels in its table."""
+    """The small-P profile: one rss_kernel launch (and one of each tree
+    kernel) a superstep in the timed run, the card's kernels in its
+    table."""
     prof = _entry("scripts/profile_smallp_torch.py")
     got = prof.main(P=4, n_data=500, iters=50, device=cuda)
-    assert got["launches"] == {"linreg_rss": 50}
+    assert got["launches"] == {"linreg_rss": 50, **_tree_launches(50)}
     assert got["category"] == "kernel"
     assert any("rss_kernel" in name for name, _ in got["top"])
     assert "device total us/iter" in capsys.readouterr().out
@@ -1518,3 +1544,132 @@ def test_runner_spans_on_the_card(cuda, monkeypatch):
         for a, b in zip(kids, kids[1:]):
             assert a["device_end_us"] <= b["device_start_us"]
     profiling.reset()
+
+
+# The binary superstep's tree kernels (kernels/pmp_tree.py) at the sweep
+# cell's shape (one chain, and the skewness protocol's 64), the LSTM cell's
+# (P = 8 of d = 24,458, single, zscore), all_uniform, rows past one block's
+# copy (the grid-wide gather) and the deepest tree one block holds.
+TREE_SHAPES = {
+    "sweep": dict(C=1, depth=10, d=3, selection="all_first",
+                  stabilizer="none"),
+    "sweep_64": dict(C=64, depth=10, d=3, selection="all_first",
+                     stabilizer="none"),
+    "lstm": dict(C=1, depth=3, d=24_458, selection="single",
+                 stabilizer="zscore"),
+    "uniform": dict(C=8, depth=4, d=3, selection="all_uniform",
+                    stabilizer="none"),
+    "gather": dict(C=2, depth=7, d=1000, selection="all_uniform",
+                   stabilizer="zscore"),
+    "deepest": dict(C=2, depth=14, d=2, selection="all_first",
+                    stabilizer="none"),
+}
+
+
+def _tree_draws_agree(cfg, Y, logpi, u, pick, got):
+    """The kernel's outputs against the plain version's on the same
+    inputs: log_accept within 1e-6, the emitted rows and the root equal
+    except where the deciding uniform lies within 1e-6 of a step of the
+    plain CDF; the root's row and log-density the kernel's own."""
+    from pmpx_torch.resample import categorical_many
+    from pmpx_torch.samplers import pmp
+    from pmpx_torch.samplers.stabilize import stabilize_logits
+
+    theta2, samples, root, logA, root_logp = got
+    C, P = logpi.shape
+    want = pmp.log_accept_tree(Y, logpi, cfg.topology(), cfg.transition())
+    torch.testing.assert_close(logA, want, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+    logits = stabilize_logits(want, cfg.stabilizer, cfg.nan_guard)
+    cdf = torch.cumsum(torch.softmax(logits, -1), -1)
+    cdf = cdf / cdf[:, -1:]
+    pos = torch.searchsorted(cdf.contiguous(), u.contiguous())
+    below = torch.take_along_dim(cdf, (pos - 1).clamp(0, P - 1), -1)
+    above = torch.take_along_dim(cdf, pos.clamp(0, P - 1), -1)
+    near = torch.minimum((u - below).abs(), (u - above).abs()) < 1e-6
+    draws = categorical_many(logits, u.shape[1], u=u).long()
+    rows = torch.take_along_dim(Y, draws[..., None], dim=1)
+    same = (samples == rows).all(-1)
+    assert bool((same | near).all()) and same.float().mean() > 0.99
+    slot = (pick if cfg.selection == "all_uniform"
+            else torch.zeros(C, dtype=torch.long, device=Y.device))[:, None]
+    agree = (root.long() == draws.gather(1, slot)[:, 0]) | near.gather(
+        1, slot)[:, 0]
+    assert bool(agree.all())
+    chain = torch.arange(C, device=Y.device)
+    assert torch.equal(theta2, Y[chain, root.long()])
+    # under the guard a NaN log-density's node has weight 1 and may be chosen
+    torch.testing.assert_close(root_logp, logpi[chain, root.long()], rtol=0,
+                               atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(TREE_SHAPES))
+def test_pmp_tree_kernels_match_plain(cuda, name):
+    """Y bit-equal to tree_positions; the select kernel's outputs against
+    the plain version's (_tree_draws_agree), bit for bit on a repeat; one
+    launch of each kernel a call (and the gather where the rows pass one
+    block's copy)."""
+    from pmpx_torch.kernels import pmp_tree
+    from pmpx_torch.samplers import pmp
+
+    s = TREE_SHAPES[name]
+    C, depth, d = s["C"], s["depth"], s["d"]
+    P = 1 << depth
+    cfg = PMPConfig(N=1, depth=depth, step_size=0.02,
+                    selection=s["selection"], stabilizer=s["stabilizer"])
+    g = torch.Generator(device=cuda)
+    g.manual_seed(depth * 100 + C)
+    theta = torch.randn((C, d), generator=g, device=cuda)
+    eps = torch.randn((C, P, d), generator=g, device=cuda)
+    before = dict(launches)
+    Y = pmp_tree.tree_positions(theta, eps, depth, 0.02)
+    assert torch.equal(Y, pmp.tree_positions(theta, 0.02 * eps,
+                                             cfg.topology()))
+    # a log-density of a posterior's spread: weights of O(1-10) and many
+    # that underflow in the softmax
+    logpi = -((Y - theta[:, None]) ** 2).sum(-1) * (3000.0 / d)
+    num = 1 if s["selection"] == "single" else P
+    u = torch.rand((C, num), generator=g, device=cuda)
+    pick = torch.randint(0, P, (C,), generator=g, device=cuda)
+    got = pmp_tree.tree_select(cfg, Y, logpi, u, pick)
+    again = pmp_tree.tree_select(cfg, Y, logpi, u, pick)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _tree_draws_agree(cfg, Y, logpi, u, pick, got)
+    rows = 1 if num == 1 else P + 1
+    gathers = 2 * (rows * d > pmp_tree.BLOCK_COPY)
+    assert {k: launches[k] - before[k] for k in launches
+            if launches[k] != before[k]} == {
+        "pmp_tree_positions": 1, "pmp_tree_select": 2,
+        **({"pmp_tree_gather": gathers} if gathers else {})}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan_guard", [True, False])
+@pytest.mark.parametrize("stabilizer", ["none", "zscore"])
+@pytest.mark.parametrize("depth", [4, 10])
+def test_pmp_tree_select_nonfinite(cuda, depth, stabilizer, nan_guard):
+    """Four chains: a subtree of -inf log-densities, a +inf one, a NaN
+    one, and every node but the root -inf: the kernel against the plain
+    version as above, under both selections that draw P."""
+    from pmpx_torch.kernels import pmp_tree
+
+    P = 1 << depth
+    g = torch.Generator(device=cuda)
+    g.manual_seed(depth)
+    Y = torch.randn((4, P, 3), generator=g, device=cuda)
+    logpi = 3.0 * torch.randn((4, P), generator=g, device=cuda)
+    logpi[0, 8:12] = float("-inf")
+    logpi[1, 5] = float("inf")
+    logpi[2, 6] = float("nan")
+    logpi[3, 1:] = float("-inf")
+    u = torch.rand((4, P), generator=g, device=cuda)
+    pick = torch.randint(0, P, (4,), generator=g, device=cuda)
+    for selection in ("all_uniform", "all_first"):
+        cfg = PMPConfig(N=1, depth=depth, step_size=0.02,
+                        selection=selection, stabilizer=stabilizer,
+                        nan_guard=nan_guard)
+        got = pmp_tree.tree_select(cfg, Y, logpi, u, pick)
+        _tree_draws_agree(cfg, Y, logpi, u, pick, got)
