@@ -18,7 +18,11 @@ Phases, each printing its wall time:
    ``cudaOccupancyMaxActiveClusters``);
 2. ``linreg_rss`` against its plain version at the shapes the sweep
    paths give it and at the edges of its launch geometry, over every
-   padded slot and over the real points only (``n_valid``);
+   padded slot and over the real points only (``n_valid``); 2b. the
+   binary tree's kernels against their plain versions; 2c. the granite
+   cell's SSD scan and in-place positions at its shapes against their
+   plain versions, and one granite superstep's launches
+   (:func:`phase2c`, callable alone);
 3. ``fused_chain`` (injected uniforms) against its plain version, step by
    step from the kernel's own state; 3b. the same for its flat-MP and
    general modes; 3c. the same for every fused cell of the time grid, on
@@ -324,6 +328,19 @@ TREE_CASES = (("sweep", 1, 10, 3, "all_first", "none"),
               ("deepest", 2, 14, 2, "all_first", "none"))
 TREE_TIMED = ("sweep", "lstm")
 TREE_TOL = 1e-6
+# phase 2c: the granite cell's two kernels at its shapes.  The SSD scan
+# over (sequences, T, heads, head_dim, d_state) = the cell's 8 proposals x
+# 4 sequences of 4,096 positions, 64 heads of 64, d_state 128, in
+# bfloat16, within SSD_REL of y's scale of its chunked sums (two float32
+# orders, y rounded to bfloat16 on both sides: at most one bfloat16 ulp
+# apart, as tests/test_torch_granite_gpu.py holds it); the tree's P = 8
+# positions over d = 772,160,448 written over the innovations, bit-equal
+# to the plain version; then one granite superstep from the benchmark's
+# cell with its launches counted from 0.
+SSD_SHAPE = (32, 4096, 64, 64, 128)
+SSD_REL = 2.0 ** -7
+GRANITE_D, GRANITE_DEPTH, GRANITE_STEP = 772_160_448, 3, 1e-4
+GRANITE_CELL = "granite-h-micro-pmp"
 MNIST_CELLS = (("LSTM", "pmp", 300), ("LSTM", "mp", 300), ("LSTM", "mh", 600),
                ("FC", "pmp", 600))
 MNIST_PROFILE = 5  # supersteps in each profiler trace of phase 10
@@ -982,11 +999,15 @@ def lstm_torch_state(post, theta) -> dict:
             "fc.bias": p["Dense_0.bias"]}
 
 
-def tree_launches(n: int, gather: bool = False) -> dict:
+def tree_launches(n: int, gather: bool = False,
+                  inplace: bool = False) -> dict:
     """The tree kernels' launches of n binary supersteps on the card
-    (kernels/pmp_tree.py): one of each side of the target call, and the
-    grid-wide gather where the emitted rows pass one block's copy."""
-    out = {"pmp_tree_positions": n, "pmp_tree_select": n}
+    (kernels/pmp_tree.py): one of each side of the target call (the
+    positions over the innovations where the chains' columns reach
+    INPLACE_COLUMNS), and the grid-wide gather where the emitted rows pass
+    one block's copy."""
+    out = {"pmp_tree_positions_inplace" if inplace else "pmp_tree_positions":
+           n, "pmp_tree_select": n}
     if gather:
         out["pmp_tree_gather"] = n
     return out
@@ -1086,6 +1107,119 @@ def phase2b(dev, bench) -> list:
                 rows[kname].get("max_abs_err", 0.0),
                 la_err if kname == "pmp_tree_select" else 0.0)
     return list(rows.values())
+
+
+def phase2c(dev) -> dict:
+    """Phase 2c: ``mamba2_ssd`` and the in-place ``tree_positions`` on the
+    card at the granite cell's shapes against their plain versions
+    (SSD_SHAPE within SSD_REL; P = 8 x GRANITE_D bit-equal), each timed
+    (CUDA events) beside its bytes bound, and one superstep of the cell's
+    program with its launches gated: a scan a Mamba layer, the positions
+    over the innovations, the select and its gather.  Needs ~62 GB of the
+    card's memory at once; returns the rows it printed."""
+    import torch.nn.functional as F
+
+    from pmpx_torch.kernels import launches, pmp_tree, reset_launches
+    from pmpx_torch.kernels.mamba2_ssd import mamba2_ssd, ssd_chunked_ref
+
+    def counts():
+        return {k: v for k, v in launches.items() if v}
+
+    rows = {}
+    S, T, H, hd, N = SSD_SHAPE
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    # x, B, C as views of one conv output, as the model gives them
+    xbc = torch.randn((S, T, H * hd + 2 * N), generator=g,
+                      device=dev).to(torch.bfloat16)
+    x = xbc[..., :H * hd].reshape(S, T, H, hd)
+    B, C = xbc[..., H * hd:H * hd + N], xbc[..., H * hd + N:]
+    dt = F.softplus(torch.randn((S, T, H), generator=g, device=dev) - 3.0)
+    A = -torch.exp(torch.rand((S, H), generator=g, device=dev) * 2.7)
+    D = torch.randn((S, H), generator=g, device=dev)
+    reset_launches()
+    y = mamba2_ssd(x, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    require(counts() == {"mamba2_ssd": 1}, f"2c mamba2_ssd: one launch, "
+            f"{counts()}")
+    want = ssd_chunked_ref(x, dt, A, B, C, D).float()
+    got = y.float()
+    scale = want.abs() + want.pow(2).mean().sqrt()
+    rel = float(((got - want).abs() / scale).max())
+    require(bool(torch.isfinite(got).all()) and rel < SSD_REL,
+            f"2c mamba2_ssd within {SSD_REL:g} of its plain version: {rel}")
+    nbytes = S * T * (2 * H * hd * 2 + 2 * N * 2 + H * 4)
+    b_ms, b_by = bound(5.0 * hd * N * H * S * T, nbytes)
+    rows["mamba2_ssd"] = {
+        "ms": event_ms(lambda: mamba2_ssd(x, dt, A, B, C, D), 10),
+        "plain_ms": event_ms(lambda: ssd_chunked_ref(x, dt, A, B, C, D), 2),
+        "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": rel,
+        "shape": list(SSD_SHAPE)}
+    print(f"2c mamba2_ssd: {json.dumps(rows['mamba2_ssd'])}")
+    del xbc, x, B, C, dt, A, D, y, want, got, scale
+    torch.cuda.empty_cache()
+
+    P = 1 << GRANITE_DEPTH
+    g.manual_seed(25)
+    theta = torch.randn((1, GRANITE_D), generator=g, device=dev)
+    drawn = g.get_state()
+    eps = torch.randn((1, P, GRANITE_D), generator=g, device=dev)
+    reset_launches()
+    Y = pmp_tree.tree_positions(theta, eps, GRANITE_DEPTH, GRANITE_STEP,
+                                overwrite=True)
+    torch.cuda.synchronize()
+    require(Y.data_ptr() == eps.data_ptr()
+            and counts() == {"pmp_tree_positions_inplace": 1},
+            f"2c the positions over the innovations, one launch: {counts()}")
+    g.set_state(drawn)
+    plain = torch.randn((1, P, GRANITE_D), generator=g, device=dev)
+    pmp_tree.tree_positions_inplace_ref(theta, plain, GRANITE_DEPTH,
+                                        GRANITE_STEP)
+    require(torch.equal(Y, plain), "2c the in-place positions bit-equal to "
+            "the plain version at P = 8, d = 772,160,448")
+    del plain
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(GRANITE_DEPTH * P * GRANITE_D,
+                       (2 * P + 1) * GRANITE_D * 4)
+    rows["pmp_tree_positions_inplace"] = {
+        "ms": event_ms(lambda: pmp_tree.tree_positions(
+            theta, eps, GRANITE_DEPTH, GRANITE_STEP, overwrite=True), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "P": P, "d": GRANITE_D}
+    print(f"2c pmp_tree_positions_inplace: "
+          f"{json.dumps(rows['pmp_tree_positions_inplace'])}")
+    del theta, eps, Y
+    torch.cuda.empty_cache()
+
+    from benchmark import harness as H
+
+    cell = H.load_cell(GRANITE_CELL)
+    model = cell.module("models", "granite_hybrid")
+    inp = model.inputs(cell.config, 2**31 + 24, dev)
+    superstep, theta0 = model.program_chain(cell.config, inp, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2**33 + 24)
+    mamba = cell.config["layer_types"][:cell.config[
+        "num_hidden_layers"]].count("mamba")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        theta, out = superstep(gen, theta0)
+    torch.cuda.synchronize()
+    got = counts()
+    require(got == {"mamba2_ssd": mamba, "pmp_tree_positions_inplace": 1,
+                    "pmp_tree_select": 1, "pmp_tree_gather": 1},
+            f"2c a granite superstep: a scan a Mamba layer and the tree's "
+            f"in-place kernels: {got}")
+    require(bool(torch.isfinite(theta).all())
+            and math.isfinite(float(out["root_logp"])),
+            "2c a granite superstep: a finite state and root_logp")
+    rows["granite_superstep"] = {"launches": got,
+                                 "peak_bytes":
+                                     torch.cuda.max_memory_allocated()}
+    print(f"2c granite superstep: {json.dumps(rows['granite_superstep'])}")
+    del superstep, theta0, theta, out, inp
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase12(dev, name: str, smi: str, bench) -> dict:
@@ -2797,6 +2931,8 @@ def main() -> int:
         for part in ("positions", "select", "gather"):
             require(f"tree_{part}_kernel" in usage,
                     f"ptxas reported tree_{part}_kernel")
+        require(any("mamba2_ssd_kernel" in k for k in usage),
+                "ptxas reported mamba2_ssd_kernel")
         for label, use in usage.items():
             print(f"{label}: {use['registers']} registers, "
                   f"{use['smem_bytes']} bytes of static shared memory, 0 "
@@ -2873,6 +3009,9 @@ def main() -> int:
 
     with Phase("2b pmp_tree vs plain"):
         tree_rows = phase2b(dev, bench)
+
+    with Phase("2c granite kernels vs plain"):
+        phase2c(dev)
 
     target = bench.bench_target(dev)
     cfg = bench.bench_config()
@@ -3632,7 +3771,8 @@ def main() -> int:
                 require(bool(np.isfinite(losses).all()), f"{label} losses")
                 require(np.unique(losses).size > 1, f"{label}: chain moved")
                 # FC's 567,434 parameters pass one block's copy
-                tree = (tree_launches(steps, gather=model == "FC")
+                tree = (tree_launches(steps, gather=model == "FC",
+                                      inplace=model == "FC")
                         if algo == "pmp" else {})
                 require(counts == ({"lstm_fused": steps} if kernel else {})
                         | tree, f"{label}: one lstm_fused launch per "

@@ -20,6 +20,11 @@
 //   added level by level, adding 0 where the bit is clear, as tree_positions
 //   adds its tiles, so Y is bit-equal to it; __fmul_rn keeps the step size's
 //   product out of an fma, as torch's separate multiply does.
+// - tree_positions_inplace_kernel, one thread a column (c, k) of eps, for a
+//   state too large to hold eps and Y side by side (at d = 772 M and P = 8
+//   each is 24.7 GB): the same sums, written over eps row by row from the
+//   last row down.  Row x reads rows x mod 2^(i+1) <= x only, which no
+//   thread has overwritten yet, so Y is bit-equal to the first kernel's.
 // - tree_select_kernel, one block a chain, P <= 2^14 (the log-densities, the
 //   weights and the draws in shared memory):
 //     the weights: the P - 1 sibling pairs' logsumexps once, with
@@ -78,6 +83,31 @@ tree_positions_kernel(const float* __restrict__ theta,
                    : 0.f);
     }
     Y[e] = y;
+  }
+}
+
+__global__ void __launch_bounds__(kGatherThreads)
+tree_positions_inplace_kernel(const float* __restrict__ theta, float* eps,
+                              long long columns, int depth, int d,
+                              float scale) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < columns; e += stride) {
+    const long long c = e / d;
+    const int k = static_cast<int>(e - c * d);
+    float* ec = eps + (c << depth) * d + k;
+    const float t = theta[e];
+    for (int x = (1 << depth) - 1; x >= 0; --x) {
+      float y = t;
+      for (int i = 0; i < depth; ++i) {
+        const int src = x & ((2 << i) - 1);
+        y = y + (((x >> i) & 1)
+                     ? __fmul_rn(scale, ec[static_cast<long long>(src) * d])
+                     : 0.f);
+      }
+      ec[static_cast<long long>(x) * d] = y;
+    }
   }
 }
 
@@ -389,6 +419,19 @@ int pmpx_tree_positions(const float* theta, const float* eps, float* Y, int C,
   tree_positions_kernel<<<grid_for(total), kGatherThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       theta, eps, Y, total, depth, d, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tree_positions written over eps (C, 2^depth, d), one thread a column.
+int pmpx_tree_positions_inplace(const float* theta, float* eps, int C,
+                                int depth, int d, float scale, void* stream) {
+  if (C < 1 || d < 1 || depth < 1 || depth > kMaxDepth) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long columns = static_cast<long long>(C) * d;
+  tree_positions_inplace_kernel<<<grid_for(columns), kGatherThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      theta, eps, columns, depth, d, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

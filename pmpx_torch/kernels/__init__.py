@@ -10,8 +10,12 @@ on a CPU tensor does not count).  ``fused_chain`` counts one chain with
 clocks; a measurement, never the main path), ``lstm_fused`` one launch
 of the LSTM forward for P parameter sets, ``pmp_tree_positions`` and
 ``pmp_tree_select`` one launch of each side of a binary superstep's tree
-(all its chains), ``pmp_tree_gather`` the grid-wide gather of the
-emitted rows where they are too many for the select kernel's blocks.
+(all its chains), ``pmp_tree_positions_inplace`` a launch of the
+positions written over the innovations instead (where the chains'
+columns are many), ``pmp_tree_gather`` the grid-wide gather of the
+emitted rows where they are too many for the select kernel's blocks,
+``mamba2_ssd`` one launch of the Mamba-2 SSD scan for all the sequences
+of a layer (``kernels.mamba2_ssd``).
 The dict is also the ``launches`` family of
 :data:`pmpx_torch.profiling.counters`.
 """
@@ -28,8 +32,10 @@ launches = {
     "fused_chain_stamped": 0,
     "lstm_fused": 0,
     "pmp_tree_positions": 0,
+    "pmp_tree_positions_inplace": 0,
     "pmp_tree_select": 0,
     "pmp_tree_gather": 0,
+    "mamba2_ssd": 0,
 }
 
 

@@ -14,7 +14,13 @@ card.  The plain versions are the port's torch functions
 wrapper runs them for CPU tensors and, for CUDA tensors, launches or
 raises.  The emitted rows ride in the select kernel's blocks up to
 ``BLOCK_COPY`` elements a chain; above, a third, grid-wide launch gathers
-them.
+them.  Where the chains' columns are many (``C * d >= INPLACE_COLUMNS``)
+and the caller lets it (``overwrite=True``: the innovations are its own
+scratch), :func:`tree_positions` writes the positions over the
+innovations, one thread a column, so that a superstep never holds both
+(P, d) buffers: at d = 772 M and P = 8 each is 24.7 GB.  That kernel
+counts in ``launches["pmp_tree_positions_inplace"]``, the other in
+``launches["pmp_tree_positions"]``.
 """
 
 from __future__ import annotations
@@ -24,11 +30,15 @@ import torch
 from pmpx_torch import _build
 from pmpx_torch.kernels import launches
 
-__all__ = ["MAX_DEPTH", "BLOCK_COPY", "engages", "tree_positions",
-           "tree_positions_ref", "tree_select", "tree_select_ref"]
+__all__ = ["MAX_DEPTH", "BLOCK_COPY", "INPLACE_COLUMNS", "engages",
+           "tree_positions", "tree_positions_ref",
+           "tree_positions_inplace_ref", "tree_select", "tree_select_ref"]
 
 MAX_DEPTH = 14  # (3 + 1/32) * 2**14 floats of shared memory a block
 BLOCK_COPY = 1 << 16  # elements of emitted rows a chain's block copies
+# columns (C * d) from which the positions may overwrite the innovations:
+# below, one thread a column would leave the card idle (the sweep's d = 3)
+INPLACE_COLUMNS = 1 << 16
 _MODES = {"all_uniform": 0, "all_first": 1, "single": 2}
 
 
@@ -69,11 +79,15 @@ def _launch(device, fn, *args) -> int:
 
 
 def tree_positions(theta: torch.Tensor, eps: torch.Tensor, depth: int,
-                   scale: float = 1.0) -> torch.Tensor:
+                   scale: float = 1.0, overwrite: bool = False
+                   ) -> torch.Tensor:
     """Y (C, P, d) of C chains' binary trees of P = 2**depth states from
     theta (C, d) and the innovations eps (C, P, d), each times ``scale``
     (the step size, where eps is a raw normal draw): bit-equal to
     ``samplers.pmp.tree_positions(theta, scale * eps, topology(1, depth))``.
+    With ``overwrite`` and ``C * d >= INPLACE_COLUMNS`` Y is eps itself,
+    overwritten (the plain version of that is
+    :func:`tree_positions_inplace_ref`).
     """
     P = 1 << _depth(depth)
     if theta.dim() != 2:
@@ -81,8 +95,19 @@ def tree_positions(theta: torch.Tensor, eps: torch.Tensor, depth: int,
     C, d = theta.shape
     _check(theta.device, theta=(theta, (C, d), torch.float32),
            eps=(eps, (C, P, d), torch.float32))
+    inplace = overwrite and C * d >= INPLACE_COLUMNS
     if theta.device.type == "cpu":
+        if inplace:
+            return tree_positions_inplace_ref(theta, eps, depth, scale)
         return tree_positions_ref(theta, eps, depth, scale)
+    if inplace:
+        err = _launch(theta.device,
+                      _build.load().lib.pmpx_tree_positions_inplace,
+                      theta.data_ptr(), eps.data_ptr(), C, depth, d,
+                      float(scale))
+        _build.check(err, "tree_positions")
+        launches["pmp_tree_positions_inplace"] += 1
+        return eps
     Y = torch.empty((C, P, d), device=theta.device)
     err = _launch(theta.device, _build.load().lib.pmpx_tree_positions,
                   theta.data_ptr(), eps.data_ptr(), Y.data_ptr(), C, depth, d,
@@ -159,6 +184,23 @@ def tree_positions_ref(theta, eps, depth, scale=1.0):
 
     return pmp.tree_positions(theta, eps if scale == 1.0 else scale * eps,
                               tree.topology(1, depth))
+
+
+def tree_positions_inplace_ref(theta, eps, depth, scale=1.0):
+    """The in-place kernel's plain version: eps (C, P, d) overwritten by
+    the positions row by row from the last down, each row's sums in
+    :func:`tree_positions_ref`'s order; returns eps."""
+    P = 1 << depth
+    for x in range(P - 1, -1, -1):
+        y = theta.clone()
+        for i in range(depth):
+            if (x >> i) & 1:
+                src = eps[:, x & ((2 << i) - 1)]
+                y = y + (src if scale == 1.0 else scale * src)
+            else:
+                y = y + 0.0
+        eps[:, x] = y
+    return eps
 
 
 def tree_select_ref(cfg, Y, logpi, u, pick=None):

@@ -11,7 +11,10 @@ their layer's boundaries (``fused.*`` in
 :func:`pmpx_torch.kernels.fused_chain.make_fused_chain`, ``farm.*`` in
 :func:`pmpx_torch.parallel.chains.make_chain_farm_fused`, ``chain.*`` in
 :class:`pmpx_torch.samplers.base.CompiledChain` and
-:func:`~pmpx_torch.samplers.base.run_chain_eager`).  A span is kept while
+:func:`~pmpx_torch.samplers.base.run_chain_eager`), and an NN posterior's
+batched density is ``nn.density`` wherever it runs outside a capture
+(:meth:`pmpx_torch.targets.nn.NNPosterior.log_prob_batch`: step 0, eager
+chains, a check's evaluation).  A span is kept while
 a ``torch.profiler`` profile is active or inside :func:`recording`;
 otherwise a span site costs one check and keeps nothing.  A kept span
 holds its name, the span that opened it, its host start and end in µs of

@@ -239,14 +239,17 @@ def make_superstep(target: Target, cfg: PMPConfig):
     def on_card(generator, theta, eps, u, pick):
         batch = theta.shape[:-1]
         C = theta[..., 0].numel()
-        scale = 1.0
-        if eps is None:
+        scale, drawn = 1.0, eps is None
+        if drawn:
             eps = torch.randn((*batch, P, d), generator=generator,
                               device=theta.device, dtype=theta.dtype)
             scale = cfg.step_size
+        # innovations drawn here are scratch: the positions may overwrite
+        # them, so that the superstep never holds both (P, d) buffers
         Y = pmp_tree.tree_positions(theta.reshape(C, d).contiguous(),
                                     eps.reshape(C, P, d).contiguous(),
-                                    cfg.depth, scale)
+                                    cfg.depth, scale, overwrite=drawn)
+        del eps
         logpi = batch_log_prob(target, Y.reshape(-1, d), generator)
         num = 1 if cfg.selection == "single" else P
         if u is None:

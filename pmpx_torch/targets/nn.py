@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch.func import functional_call, grad_and_value, vmap
 
 from pmpx_torch._device import resolve_device
+from pmpx_torch.profiling import span
 
 __all__ = ["NNPosterior"]
 
@@ -40,10 +41,23 @@ def _init_leaf(shape, init: str, gen: torch.Generator) -> torch.Tensor:
     """flax's initialiser ``init`` for one leaf, drawn on the CPU from
     ``gen`` (the law of flax's; not its numbers).  The fan-in of a kernel
     is the product of all but its last axis (flax's ``in_axis=-2`` times
-    the receptive field of a conv kernel (kh, kw, in, out))."""
+    the receptive field of a conv kernel (kh, kw, in, out)).  ``normal``
+    is N(0, 1/fan_in) untruncated, ``normal:<std>`` N(0, std^2);
+    ``mamba_A_log`` and ``mamba_dt_bias`` are Mamba-2's initialisers: log
+    U(1, 16), and softplus^-1 of a dt log-uniform on [1e-3, 1e-1]."""
     t = torch.zeros(shape)
     fan_in = math.prod(shape[:-1])
-    if init == "lecun_normal":
+    if init == "normal" or init.startswith("normal:"):
+        std = (math.sqrt(1.0 / fan_in) if init == "normal"
+               else float(init[len("normal:"):]))
+        torch.nn.init.normal_(t, 0.0, std, generator=gen)
+    elif init == "mamba_A_log":
+        t = torch.log(torch.empty(shape).uniform_(1.0, 16.0, generator=gen))
+    elif init == "mamba_dt_bias":
+        dt = torch.exp(torch.empty(shape).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=gen))
+        t = dt + torch.log(-torch.expm1(-dt))
+    elif init == "lecun_normal":
         std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
         torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                     generator=gen)
@@ -84,8 +98,11 @@ class NNPosterior:
     and the loss stay f32.  ``proposal_chunk`` bounds how many of the P
     networks evaluate at once (``vmap``'s ``chunk_size``; it must divide
     P).  ``seed`` draws :meth:`init_theta` from flax's initialisers with a
-    ``torch.Generator``.  ``X`` and ``Y`` move to ``device`` (CUDA unless
-    given).  ``stochastic=True`` (a model with ``noise_shapes()``, such as
+    ``torch.Generator``, at its first call (a posterior whose chain starts
+    elsewhere draws nothing).  ``X`` and ``Y`` move to ``device`` (CUDA
+    unless given); an integer ``X`` (token ids) stays integer, any other
+    is cast to float32 and then to ``compute_dtype``.
+    ``stochastic=True`` (a model with ``noise_shapes()``, such as
     ``BayesMLP``) makes the density methods take ``generator=``, from
     which each evaluation draws its own weight noise.
     """
@@ -110,8 +127,7 @@ class NNPosterior:
         self.device = dev
         self.model = model.to(dev)
         self.compute_dtype = compute_dtype
-        X = torch.as_tensor(X, dtype=torch.float32, device=dev)
-        self.X = X if compute_dtype is None else X.to(compute_dtype)
+        self.X = self._cast_x(torch.as_tensor(X, device=dev))
         self.Y = torch.as_tensor(Y, device=dev).long()
         self.temper = float(temper)
         self.stochastic = bool(stochastic)
@@ -126,17 +142,22 @@ class NNPosterior:
             self._slices[path] = (off, n, tuple(shape))
             off += n
         self.d = off
-        gen = torch.Generator().manual_seed(int(seed))
-        self._theta0 = torch.cat([
-            _init_leaf(shape, init, gen).reshape(-1)
-            for _, shape, init in self.layout
-        ]).to(dev)
+        self.seed = int(seed)
+        self._theta0 = None
         # Optional fused-kernel density (pmpx_torch.kernels.lstm_fused
         # .attach): a log_prob_batch that bypasses the generic forward.
         self._fast_batch = None
         self._data_bound = False
 
     # ------------------------------------------------------------------
+    def _cast_x(self, X: torch.Tensor) -> torch.Tensor:
+        """Inputs as the forward pass takes them: integers (token ids)
+        as they are, anything else in float32, then ``compute_dtype``."""
+        if not X.is_floating_point() and X.dtype != torch.bool:
+            return X
+        X = X.to(torch.float32)
+        return X if self.compute_dtype is None else X.to(self.compute_dtype)
+
     def unravel(self, theta: torch.Tensor) -> dict:
         """{flax path: leaf} views of ``theta`` (d,) or a batch (..., d)."""
         lead = theta.shape[:-1]
@@ -174,7 +195,7 @@ class NNPosterior:
             )
         self._data_bound = True
         old_x, old_y = self.X, self.Y
-        self.X = X if self.compute_dtype is None else X.to(self.compute_dtype)
+        self.X = self._cast_x(X)
         if Y is not None:
             self.Y = Y
         try:
@@ -185,7 +206,14 @@ class NNPosterior:
 
     def init_theta(self) -> torch.Tensor:
         """Raveled freshly initialised parameters (the reference warm-starts
-        from pretrained ``.pkl`` checkpoints; see ``theta_from_params``)."""
+        from pretrained ``.pkl`` checkpoints; see ``theta_from_params``),
+        drawn at the first call, on the CPU from ``seed``, leaf by leaf."""
+        if self._theta0 is None:
+            gen = torch.Generator().manual_seed(self.seed)
+            self._theta0 = torch.cat([
+                _init_leaf(shape, init, gen).reshape(-1)
+                for _, shape, init in self.layout
+            ]).to(self.device)
         return self._theta0
 
     def theta_from_params(self, params: dict) -> torch.Tensor:
@@ -215,7 +243,8 @@ class NNPosterior:
         params = self.unravel(theta)
         if self.compute_dtype is not None:
             params = {k: v.to(self.compute_dtype) for k, v in params.items()}
-            X = X.to(self.compute_dtype)
+            if X.is_floating_point():
+                X = X.to(self.compute_dtype)
         args = (X,) if noise is None else (X, noise)
         return functional_call(self.model, params, args)
 
@@ -249,6 +278,16 @@ class NNPosterior:
 
     def log_prob_batch(self, Theta: torch.Tensor,
                        generator=None) -> torch.Tensor:
+        """The span ``nn.density`` (``proposals``, and ``tokens`` the
+        predictions the loss averages), kept where spans are and not
+        while a CUDA graph captures (it would not be replayed)."""
+        if Theta.is_cuda and torch.cuda.is_current_stream_capturing():
+            return self._log_prob_batch(Theta, generator)
+        with span("nn.density", self.device, proposals=Theta.shape[0],
+                  tokens=self.Y.numel()):
+            return self._log_prob_batch(Theta, generator)
+
+    def _log_prob_batch(self, Theta, generator):
         if self._fast_batch is not None:
             return self._fast_batch(Theta)
         chunk = self._chunk(Theta.shape[0])

@@ -226,12 +226,13 @@ def test_attach_rejects_mlp_and_stochastic_posteriors():
 
 def test_profiles_name_the_ports_kernels():
     """The profiler breakdown's "own" kernels are the __global__
-    functions of pmpx_torch/csrc, lstm_fused_kernel and the tree kernels
-    among them (PyTorch keeps kernels in anonymous namespaces too; those
-    are not the port's)."""
+    functions of pmpx_torch/csrc, lstm_fused_kernel, the tree kernels and
+    the SSD scan among them (PyTorch keeps kernels in anonymous namespaces
+    too; those are not the port's)."""
     from pmpx_torch import bench
 
     assert bench._own_kernels() == {
         "rss_kernel", "chain_binary_kernel", "chain_mp_kernel",
         "chain_general_kernel", "lstm_fused_kernel", "tree_positions_kernel",
-        "tree_select_kernel", "tree_gather_kernel"}
+        "tree_positions_inplace_kernel", "tree_select_kernel",
+        "tree_gather_kernel", "mamba2_ssd_kernel"}
