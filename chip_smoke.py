@@ -135,10 +135,11 @@ Phases, each printing its wall time:
    PMP binary P = 1024, flat MP N = 7 and the 7 x 3 general tree, unroll
    1 and 3 (with a tail), records, final state and generator state bit
    for bit and one ``linreg_rss`` launch a superstep counted per replay;
-   16b. ``resume_chain`` in 4 chunks (one graph) bit-equal to the eager
-   chain and its checkpoint's generator state; 16c. the sweep's µs per
-   superstep captured and eager (CUDA events, alternating), a profiler
-   trace of each (kernels and device busy µs a superstep), and each run
+   16b. ``resume_chain`` in 4 chunks (its graphs captured in the first
+   chunk) bit-equal to the eager chain and its checkpoint's generator
+   state; 16c. the sweep's µs per superstep captured and eager (CUDA
+   events, alternating), a profiler trace of each (kernels and device
+   busy µs a superstep), and each run
    under ``profiling.recording()``, untraced: the card's share outside the
    superstep's own work (``outside_chain_pct``), the host µs a call and
    the device µs a superstep of the replays; 16d. the MNIST-LSTM MH chain
@@ -2347,7 +2348,7 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
         ga, gb = pair(17)
         want = base.run_chain_eager(sup, ga, th0, P16_STEPS,
                                     collect=lambda th, o: th)
-        captures = []
+        captures, marks = [], []
         capture = base.CompiledChain._capture
 
         def spy(chain, steps):
@@ -2362,7 +2363,8 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
             try:
                 thR, chunks = ck.resume_chain(
                     sup, path, P16_STEPS, collect=lambda th, o: th,
-                    checkpoint_every=P16_STEPS // P16_CHUNKS)
+                    checkpoint_every=P16_STEPS // P16_CHUNKS,
+                    on_chunk=lambda step, recs: marks.append(len(captures)))
             finally:
                 base.CompiledChain._capture = capture
             counts = dict(launches)
@@ -2376,8 +2378,11 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
         require(stepR == P16_STEPS
                 and torch.equal(gR.get_state(), ga.get_state()),
                 "16b the checkpoint's generator state")
-        require(captures == [1], f"16b one capture across the chunks "
-                f"(graphs of {captures} supersteps)")
+        require(captures[:1] == [1] and len(captures) <= 2
+                and set(marks) == {len(captures)},
+                f"16b the one-step graph and the chosen one, captured in the "
+                f"first chunk only (graphs of {captures} supersteps, "
+                f"{marks} captured after each chunk)")
         print(f"16b resume in {P16_CHUNKS} chunks of "
               f"{P16_STEPS // P16_CHUNKS}: bit-equal; launches {counts}")
 

@@ -28,9 +28,11 @@ is also a ``record_function`` range, so the Chrome trace shows it as a
 kernels.  Spans do not reach inside a captured superstep: a range opened
 during capture is host code and is not replayed.  :data:`counters` holds
 the always-on counts: ``launches`` (the dict
-:data:`pmpx_torch.kernels.launches`) and ``capture_s``, the host seconds
+:data:`pmpx_torch.kernels.launches`); ``capture_s``, the host seconds
 that :class:`~pmpx_torch.samplers.base.CompiledChain` spent in its first
-step and graph captures.  The recorder serves one thread.
+step and graph captures; and ``replays`` and ``replayed_supersteps``, the
+chunks its runs replayed (graph replays on a card) and the supersteps
+they covered.  The recorder serves one thread.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ from pmpx_torch.kernels import launches
 __all__ = ["trace", "device_time_us", "superstep_timer", "span",
            "recording", "spans", "reset", "counters"]
 
-counters = {"launches": launches, "capture_s": 0.0}
+counters = {"launches": launches, "capture_s": 0.0, "replays": 0,
+            "replayed_supersteps": 0}
 
 _profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()

@@ -3,7 +3,8 @@
 
 A superstep is a function ``(generator, state) -> (state', out)``.  On a
 CUDA device a chain replays a captured CUDA graph of ``unroll``
-supersteps, PyTorch's counterpart of ``pmpx``'s ``lax.scan`` under one
+supersteps (by default as many as the superstep's own card time calls
+for), PyTorch's counterpart of ``pmpx``'s ``lax.scan`` under one
 ``jit``; on the CPU it is a Python loop over supersteps (see
 :func:`run_chain` for the design).
 """
@@ -20,7 +21,7 @@ from pmpx_torch.profiling import counters, span
 
 __all__ = ["CompiledChain", "Target", "Tempered", "batch_log_prob",
            "compile_chain", "declare_eager", "eager_reason", "run_chain",
-           "run_chain_eager"]
+           "run_chain_eager", "unroll_for"]
 
 
 @runtime_checkable
@@ -194,6 +195,33 @@ def _plan(start: int, num_steps: int, unroll: int,
     return plan
 
 
+# A chain that chooses its unroll covers at most REPLAY_US µs of card time
+# and MAX_UNROLL supersteps a replay: the host's per-replay cost (graph
+# launch, record copies, the generator's fills; tens of µs) then keeps
+# off the card's critical path, and a long superstep keeps the one-step
+# graph alone.
+REPLAY_US = 2000.0
+MAX_UNROLL = 64
+# one-step replays timed in the first run, after one untimed (the graph's
+# first launch uploads it)
+TIMED_REPLAYS = 4
+# the spin that holds the stream while the host queues the timed replays,
+# so that the events read the card's time and not the host's (~1-2 ms)
+_HOLD_CYCLES = 2_000_000
+
+
+def unroll_for(t1_us: float, num_steps: int) -> int:
+    """The supersteps a replay covers for a superstep of ``t1_us`` µs of
+    card time, in a chain whose first run has ``num_steps``: the largest
+    power of two k <= MAX_UNROLL and <= num_steps with k * t1_us <=
+    REPLAY_US, and 1 where none is."""
+    k = 1
+    while (2 * k <= min(MAX_UNROLL, num_steps)
+           and 2 * k * t1_us <= REPLAY_US):
+        k *= 2
+    return k
+
+
 class _Chunk:
     """``steps`` supersteps from the chain's static state: a captured
     CUDA graph, or (``graph=None``) the same body run eagerly each time.
@@ -214,7 +242,12 @@ class CompiledChain:
     initialisation and the kernels' build happen outside any graph) and
     keeps its record, then captures a graph of ``unroll`` supersteps and
     one of one (the tail, and the segments ``log_every`` cuts) in the
-    first one's memory pool.  Every later run only replays, so a
+    first one's memory pool.  With ``unroll=None`` the chain chooses: its
+    first run captures the one-step graph, times up to
+    :data:`TIMED_REPLAYS` of its own one-step replays on the card with one
+    pair of CUDA events (one sync), sets ``unroll`` by :func:`unroll_for`
+    and, where that is more than 1, captures that graph in the same pool
+    for the rest of the run.  Every later run only replays, so a
     timed window that follows a first run holds no capture.  The state
     lives in static tensors; each graph's last node copies its new state
     back into them, so replays chain.  The chain draws from a generator
@@ -228,22 +261,27 @@ class CompiledChain:
     A superstep that :func:`eager_reason` gives a reason for runs as
     :func:`run_chain_eager` at each run.  ``capture=False`` runs each
     chunk's body eagerly instead of replaying it (the CPU tests of the
-    runner).
+    runner).  Both take ``unroll=None`` as 1.
 
     A run is the span ``chain.run`` (:mod:`pmpx_torch.profiling`), which
     holds ``chain.capture`` (the first run's step 0 and captures, whose
     host seconds every run adds to ``counters["capture_s"]``), one
     ``chain.replay`` a replay (``steps`` its supersteps) and one
-    ``chain.records`` for each copy of records into the outputs.
+    ``chain.records`` for each copy of records into the outputs.  The
+    always-on counters ``replays`` and ``replayed_supersteps`` add each
+    chunk run and its supersteps.
     """
 
     def __init__(self, superstep, generator, state_like, collect=None,
-                 unroll: int = 1, *, capture: bool = True):
-        if unroll < 1:
+                 unroll: Optional[int] = None, *, capture: bool = True):
+        if unroll is not None and unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {unroll}")
-        self.superstep, self.collect, self.unroll = superstep, collect, unroll
+        self.superstep, self.collect = superstep, collect
         self.reason = eager_reason(superstep, state_like) if capture else None
         self.capture = capture
+        if unroll is None and (self.reason is not None or not capture):
+            unroll = 1
+        self.unroll = unroll
         if self.reason is not None:
             return
         self.layout = _layout(state_like)
@@ -285,8 +323,40 @@ class CompiledChain:
         return out, rec
 
     def _compile(self) -> None:
-        for steps in sorted({self.unroll, 1}, reverse=True):
+        for steps in sorted({self.unroll or 1, 1}, reverse=True):
             self.chunks[steps] = self._capture(steps)
+
+    def _card_us(self, replay, n: int, dev) -> float:
+        """The mean card µs of the next ``n`` one-step replays (``replay(1)``
+        each): the stream held by a spin while the host queues them, one
+        pair of events around them, one sync."""
+        stream = torch.cuda.current_stream(dev)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.cuda.device(dev):
+            torch.cuda._sleep(_HOLD_CYCLES)
+        start.record(stream)
+        for _ in range(n):
+            replay(1)
+        end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / n
+
+    def _choose(self, replay, left: int, num_steps: int, dev) -> None:
+        """The first run's choice of ``unroll``, from the one-step replays
+        it has ``left`` (one untimed, then up to TIMED_REPLAYS timed), and
+        the capture of its graph."""
+        k = 1
+        if left > 0:
+            if left > 1:
+                replay(1)
+            n = min(TIMED_REPLAYS, left - 1) or 1
+            k = unroll_for(self._card_us(replay, n, dev), num_steps)
+        self.unroll = k
+        if k > 1:
+            t0 = time.perf_counter()
+            with span("chain.capture", dev):
+                self.chunks[k] = self._capture(k)
+            counters["capture_s"] += time.perf_counter() - t0
 
     def _capture(self, steps: int) -> _Chunk:
         if not self.capture:
@@ -353,7 +423,9 @@ class CompiledChain:
                 for dst, src in zip(outs, _leaves(tree)):
                     dst[0].copy_(src)
         pos = start
-        for k in _plan(start, num_steps, self.unroll, log_every):
+
+        def replay(k):
+            nonlocal outs, tree, pos
             chunk = self.chunks[k]
             with span("chain.replay", dev, steps=k):
                 if chunk.graph is None:
@@ -362,6 +434,8 @@ class CompiledChain:
                     chunk.graph.replay()
                     for name, n in chunk.counts.items():
                         launches[name] += n
+            counters["replays"] += 1
+            counters["replayed_supersteps"] += k
             leaves = _leaves(chunk.recs)
             with span("chain.records", dev):
                 if outs is None:
@@ -374,6 +448,11 @@ class CompiledChain:
             pos += k
             if log_every and (pos - 1) % log_every == 0:
                 log(pos - 1, _clone(self._state()), _clone(chunk.last))
+
+        if self.unroll is None:
+            self._choose(replay, num_steps - pos, num_steps, dev)
+        for k in _plan(pos, num_steps, self.unroll, log_every):
+            replay(k)
         if generator is not None:
             generator.set_state(self.gen.get_state())
         final = _rebuild(self.tree, (t.clone() for t in self.static))
@@ -385,11 +464,12 @@ def compile_chain(
     generator: Optional[torch.Generator],
     state_like: Any,
     collect: Optional[Callable[[Any, Any], Any]] = None,
-    unroll: int = 1,
+    unroll: Optional[int] = None,
 ) -> CompiledChain:
     """The chain of ``superstep`` from states laid out as ``state_like``
     and generators on ``generator``'s device, to run many times
-    (:class:`CompiledChain`): its first run captures, later runs only
+    (:class:`CompiledChain`): its first run captures (and, with ``unroll``
+    None, chooses the supersteps a replay covers), later runs only
     replay.  Timed code makes the first run before its window;
     :func:`pmpx_torch.checkpoint.resume_chain` runs every chunk on one."""
     return CompiledChain(superstep, generator, state_like, collect, unroll)
@@ -401,7 +481,7 @@ def run_chain(
     state0: Any,
     num_steps: int,
     collect: Optional[Callable[[Any, Any], Any]] = None,
-    unroll: int = 1,
+    unroll: Optional[int] = None,
     log_every: Optional[int] = None,
     log_fn: Optional[Callable[[int, Any, Any], None]] = None,
 ):
@@ -420,7 +500,12 @@ def run_chain(
     PRNG key per step, with ``unroll`` supersteps a loop iteration.  Here,
     on a CUDA device, step 0 runs eagerly, then ``unroll`` supersteps are
     captured once into a CUDA graph and replayed until ``num_steps`` (a
-    one-step graph takes the tail that ``unroll`` does not divide).  The
+    one-step graph takes the tail that ``unroll`` does not divide).  With
+    ``unroll=None`` (the default) the chain sets it from its first
+    one-step replays' card time (:class:`CompiledChain`,
+    :func:`unroll_for`): a replay covers up to ``REPLAY_US`` of card time,
+    so a short superstep's host cost a replay (the launch, the records'
+    copies) is spread over many, and a long one keeps one-step replays.  The
     state is copied into static tensors that each replay reads and
     overwrites; each replay's stacked records are copied into the run's
     ``(num_steps, ...)`` buffers on the device.  Nothing reads a value
@@ -463,7 +548,7 @@ def run_chain_eager(
     state0: Any,
     num_steps: int,
     collect: Optional[Callable[[Any, Any], Any]] = None,
-    unroll: int = 1,
+    unroll: Optional[int] = None,
     log_every: Optional[int] = None,
     log_fn: Optional[Callable[[int, Any, Any], None]] = None,
 ):

@@ -24,6 +24,7 @@ from pmpx.samplers import pmp as jpmp  # noqa: E402
 from pmpx.samplers.base import run_chain as jrun_chain  # noqa: E402
 from pmpx.targets.linreg import BayesLinReg as JLinReg  # noqa: E402
 from pmpx.targets.linreg import make_synthetic_linreg  # noqa: E402
+from pmpx_torch import profiling  # noqa: E402
 from pmpx_torch.interop import linreg_from_numpy, pmp_config_from_jax  # noqa: E402
 from pmpx_torch.samplers import base, mh, mp, pmp, psp  # noqa: E402
 from pmpx_torch.samplers.base import (  # noqa: E402
@@ -78,17 +79,17 @@ def _equal(a, b):
         assert torch.equal(x, y)
 
 
-def _chain(sup, collect, state0, gen, unroll=1):
+def _chain(sup, collect, state0, gen, unroll=None):
     return CompiledChain(sup, gen, state0, collect, unroll, capture=False)
 
 
 @pytest.mark.parametrize("name", sorted(SAMPLERS))
-@pytest.mark.parametrize("unroll", [1, 3, 7])
+@pytest.mark.parametrize("unroll", [1, 3, 7, None])
 @pytest.mark.parametrize("chains", [None, 8])
 def test_runner_equals_the_eager_loop(target, name, unroll, chains):
     """7 supersteps as unroll-step chunks (1, 3 with a tail of 1, all 7 in
-    one), one chain or a batch of 8: the eager loop's records, final state
-    and generator state, bit for bit."""
+    one; None, which is 1 here), one chain or a batch of 8: the eager
+    loop's records, final state and generator state, bit for bit."""
     if name == "mh" and chains is None and unroll == 3:
         collect = COLLECTS["pytree"]
     else:
@@ -144,6 +145,76 @@ def test_runner_chains_across_calls_and_tails(target, collect, monkeypatch):
                        base._leaves(r2)):
         assert torch.equal(a, torch.cat([x, y]))
     assert torch.equal(ga.get_state(), gb.get_state())
+
+
+@pytest.mark.parametrize("t1_us,num_steps,want", [
+    (57.0, 64, 32), (43.0, 64, 32), (62.5, 64, 32), (31.0, 64, 64),
+    (7700.0, 8, 1), (880_000.0, 4, 1), (57.0, 4, 4), (57.0, 20, 16),
+    (57.0, 1, 1), (2000.0, 64, 1), (1000.0, 64, 2), (0.0, 1000, 64),
+])
+def test_unroll_for(t1_us, num_steps, want):
+    """The supersteps a replay covers: the largest power of two <= 64
+    and <= the first run's steps whose card time stays within 2 ms."""
+    assert base.unroll_for(t1_us, num_steps) == want
+
+
+def test_unroll_none_is_one_off_the_card(target):
+    """unroll=None resolves to 1 where nothing is captured: capture=False,
+    a declared-eager superstep, a state off the card; an explicit unroll
+    stays as given."""
+    sup = SAMPLERS["mh"](target)
+    th0 = torch.tensor([0.0, 0.0, 1.0])
+    assert CompiledChain(sup, None, th0, capture=False).unroll == 1
+    assert CompiledChain(sup, None, th0, unroll=5, capture=False).unroll == 5
+    assert compile_chain(sup, None, th0).unroll == 1
+    declared = base.declare_eager(lambda g, s: (s + 1, s), "a test's reason")
+    chain = compile_chain(declared, None, th0)
+    assert chain.reason == "a test's reason" and chain.unroll == 1
+    _, recs = chain.run(None, th0, 3)
+    assert torch.equal(recs[:, 0], torch.tensor([0.0, 1.0, 2.0]))
+
+
+def test_first_run_chooses_its_unroll(target, monkeypatch):
+    """The first run of a chain left to choose (here on the CPU, its card
+    time read as 57 µs): step 0, one untimed and 4 timed one-step chunks,
+    then 32-step chunks for the rest of the run and the later ones, with a
+    tail of one-step chunks; runs of 64, 64 and 37 equal one eager run of
+    165 bit for bit, and the counters count every chunk."""
+    sup = SAMPLERS["pmp_general"](target)
+    th0 = torch.tensor([0.0, 0.0, 1.0])
+    col = COLLECTS["tuple"]
+    ga, gb = _gen(21), _gen(21)
+    fa, ra = run_chain_eager(sup, ga, th0, 165, collect=col)
+    timed, captures = [], []
+    capture = CompiledChain._capture
+    monkeypatch.setattr(CompiledChain, "_capture", lambda self, k: (
+        captures.append(k), capture(self, k))[1])
+
+    def card_us(self, replay, n, dev):
+        timed.append(n)
+        for _ in range(n):
+            replay(1)
+        return 57.0
+
+    monkeypatch.setattr(CompiledChain, "_card_us", card_us)
+    chain = _chain(sup, col, th0, gb)
+    chain.unroll = None
+    before = dict(profiling.counters)
+    runs = []
+    th = th0
+    for n in (64, 64, 37):
+        th, recs = chain.run(gb, th, n)
+        runs.append(recs)
+    assert timed == [4] and captures == [1, 32] and chain.unroll == 32
+    _equal(fa, th)
+    for a, *parts in zip(base._leaves(ra), *map(base._leaves, runs)):
+        assert torch.equal(a, torch.cat(parts))
+    assert torch.equal(ga.get_state(), gb.get_state())
+    # 1 + 4 + (32 + 26 x 1) in the first run, 2 x 32, 32 + 5 x 1
+    replays = profiling.counters["replays"] - before["replays"]
+    steps = (profiling.counters["replayed_supersteps"]
+             - before["replayed_supersteps"])
+    assert (replays, steps) == (5 + 27 + 2 + 6, 164)
 
 
 def test_chain_runs_only_its_state_layout():

@@ -1163,14 +1163,14 @@ def test_compiled_hmc_over_linreg(cuda, algo):
 
 @pytest.mark.gpu
 def test_compiled_chain_resumes_bit_equal(cuda, tmp_path, monkeypatch):
-    """resume_chain in chunks of 7 (one graph, captured once) equals one
-    straight captured run_chain and the eager loop, in states, records
-    and the generator's saved state."""
+    """resume_chain in chunks of 7 (its graphs captured in the first chunk
+    only) equals one straight captured run_chain and the eager loop, in
+    states, records and the generator's saved state."""
     from pmpx_torch import checkpoint as ck
     from pmpx_torch.config import SamplerSpec
     from pmpx_torch.samplers import base
 
-    captures = []
+    captures, marks = [], []
     capture = base.CompiledChain._capture
     monkeypatch.setattr(base.CompiledChain, "_capture", lambda self, k: (
         captures.append(k), capture(self, k))[1])
@@ -1187,18 +1187,109 @@ def test_compiled_chain_resumes_bit_equal(cuda, tmp_path, monkeypatch):
                                          collect=lambda th, o: th)
         path = str(tmp_path / "c.ckpt")
         ck.save_checkpoint(path, theta0, g, 0)
-        th, chunks = ck.resume_chain(sup, path, 30,
-                                     collect=lambda th, o: th,
-                                     checkpoint_every=7)
+        th, chunks = ck.resume_chain(
+            sup, path, 30, collect=lambda th, o: th, checkpoint_every=7,
+            on_chunk=lambda step, recs: marks.append(len(captures)))
+        resumed = list(captures)
         straight = base.run_chain(sup, g, theta0, 30,
                                   collect=lambda th, o: th)
-    assert captures == [1, 1]  # one for the resumed run, one for straight
+    # each chain captures its one-step graph and the one it chose, all in
+    # its first run: the resumed chain within its first chunk of 7
+    assert resumed[0] == 1 and set(marks) == {len(resumed)}
+    assert resumed[1:] in ([], [2], [4])
+    assert captures[len(resumed)] == 1 and len(captures) - len(resumed) <= 2
     assert torch.equal(straight[0], thE) and torch.equal(straight[1], recE)
     assert torch.equal(th, thE)
     assert torch.equal(torch.cat([torch.from_numpy(c) for c in chunks]),
                        recE.cpu())
     _, g2, step, _ = ck.load_checkpoint(path)
     assert step == 30 and torch.equal(g2.get_state(), ge.get_state())
+
+
+@pytest.mark.gpu
+def test_compiled_chain_chooses_its_replays(cuda):
+    """At the sweep's shape (P = 1024, n = 100,000) a chain left to choose
+    covers several supersteps a replay; over runs of 64, 64 and 37 (a
+    tail) its records, final state and generator state equal unroll 1's
+    and the eager loop's bit for bit, and the counters count its
+    replays and their supersteps."""
+    from pmpx_torch import profiling
+    from pmpx_torch.samplers import base, pmp
+
+    sup = pmp.make_superstep(_linreg_sweep(cuda), PMPConfig(
+        N=1, depth=10, step_size=0.02, selection="all_first"))
+    theta0 = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+
+    def collect(th, o):
+        return th, o["root_logp"]
+
+    def gen():
+        g = torch.Generator(device=cuda)
+        g.manual_seed(26)
+        return g
+
+    runs = {}
+    for unroll in (None, 1, "eager"):
+        g, th, got = gen(), theta0, []
+        chain = (None if unroll == "eager"
+                 else base.compile_chain(sup, g, theta0, collect, unroll))
+        before = dict(profiling.counters)
+        with torch.no_grad():
+            for n in (64, 64, 37):
+                th, recs = (base.run_chain_eager(sup, g, th, n, collect)
+                            if chain is None else chain.run(g, th, n))
+                got.append(recs)
+        torch.cuda.synchronize()
+        counted = tuple(profiling.counters[k] - before[k]
+                        for k in ("replays", "replayed_supersteps"))
+        runs[unroll] = (chain, th, got, g.get_state(), counted)
+    k = runs[None][0].unroll
+    assert 16 <= k <= 64
+    assert runs[1][0].unroll == 1
+    for other in (1, "eager"):
+        _same_tree(runs[None][1], runs[other][1])
+        for a, b in zip(runs[None][2], runs[other][2]):
+            _same_tree(a, b)
+        assert torch.equal(runs[None][3], runs[other][3])
+    # step 0 eager; one untimed and 4 timed one-step replays; then k-step
+    timed = 5 + len(base._plan(6, 64, k, None))
+    assert runs[None][4] == (timed + len(base._plan(0, 64, k, None))
+                             + len(base._plan(0, 37, k, None)), 164)
+    assert runs[1][4] == (164, 164)
+    assert runs["eager"][4] == (0, 0)
+
+
+@pytest.mark.gpu
+def test_a_long_superstep_keeps_one_step_replays(cuda):
+    """A superstep padded to ~5 ms of card time: the chain keeps its
+    one-step graph (k = 1) and captures no other."""
+    from pmpx_torch.samplers import base
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(1_000_000 * 5.0 / start.elapsed_time(end))
+
+    def slow(g, theta):
+        torch.cuda._sleep(cycles)
+        return theta + torch.randn(theta.shape, generator=g,
+                                   device=theta.device), {"x": theta}
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    theta0 = torch.zeros(3, device=cuda)
+    chain = base.compile_chain(slow, g, theta0)
+    chain.run(g, theta0, 8)
+    assert chain.unroll == 1 and sorted(chain.chunks) == [1]
+    ge = torch.Generator(device=cuda)
+    ge.manual_seed(0)
+    g.manual_seed(0)
+    want = base.run_chain_eager(slow, ge, theta0, 8)
+    got = chain.run(g, theta0, 8)
+    _same_tree(want, got)
+    assert torch.equal(ge.get_state(), g.get_state())
 
 
 @pytest.mark.gpu
@@ -1289,7 +1380,8 @@ def test_time_sweep_captures_outside_its_window(cuda, monkeypatch):
     with torch.no_grad():
         us, trace = bench.time_sweep(_linreg_sweep(cuda), bench.bench_config(),
                                      before_timed=before_timed)
-    assert captures == [1] and marks == [1]
+    # the one-step graph and the 16 the warm-up's 20 supersteps allow
+    assert captures == [1, 16] and marks == [2]
     assert launches["linreg_rss"] == bench.SWEEP_ITERS
     assert trace.shape == (bench.SWEEP_ITERS, 3) and us > 0
 
