@@ -36,7 +36,7 @@ Phases, each printing its wall time:
    and bf16, and a replay of PMP supersteps at full batch, kernel path
    against plain path;
 4. the sweep main path of the benchmark cell (``pmpx_torch.bench``), with
-   its launch count and a posterior check;
+   its launch counts and a posterior check (``benchmark/run.py`` times it);
 5. the fused main path, likewise;
 6. each kernel's time beside its plain version's and its bound (the
    launches of each from the time grid of phase 7, the ESS protocol of
@@ -214,8 +214,12 @@ RSS_TOL = 1e-5  # relative to max|rss|: f32 sums of ~1e5 terms, two orders
 CHAIN_ATOL = 1e-4
 CHAIN_AGREE = 0.99
 
-SWEEP_BURN = 500  # of bench.SWEEP_ITERS = 2000 supersteps
-FUSED_BURN = 10_000  # of bench.FUSED_ITERS = 100,000
+# phases 4 and 5: supersteps, burn-in, and the fused path's chunk
+SWEEP_PATH_STEPS = 2000
+SWEEP_BURN = 500
+FUSED_STEPS = 100_000
+FUSED_BURN = 10_000
+FUSED_CHUNK = 1000
 
 # phase 3b: (N, depth) of the flat-MP and general modes; the grid's flat
 # P = 4 and P = 1024, P = 200 (lanes above P), conv_pmp's N = 7 x depth 3
@@ -459,7 +463,7 @@ P15_HMC_TOL = 1e-5
 # run_chain_eager, bit for bit, for PMP binary depth 10 (P = 1024), flat
 # MP N = 7 and the 7 x 3 general tree over P16_STEPS supersteps (unroll 1,
 # and P16_UNROLL with a tail), and a resume in P16_CHUNKS chunks; the
-# sweep's us per superstep both ways over bench.SWEEP_ITERS supersteps,
+# sweep's us per superstep both ways over SWEEP_PATH_STEPS supersteps,
 # each timed P16_REPS times, alternating; and a profiler trace of
 # P16_TRACE supersteps of each (kernels a superstep), and a run of as
 # many under profiling.recording() (the runner's spans).  The timed
@@ -535,6 +539,8 @@ STAMP_CELLS = (("mp", "root", 1023, 1), ("mp", "all", 511, 1),
 CHAIN_KERNEL = re.compile(
     r"chain_(binary|mp|general)_kernelILb([01])E(?:Li(\d+)E)?")
 TREE_KERNEL = re.compile(r"tree_(positions|select|gather)_kernel")
+SSD_KERNEL = re.compile(r"mamba2_ssd_kernelI(f|13__nv_bfloat16)E")
+SSD_DTYPE = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 
 class Phase:
@@ -721,17 +727,22 @@ def lstm_sass_mma(so: Path) -> dict:
 def ptxas_usage(log: str) -> dict:
     """Registers and static shared memory that ``ptxas -v`` reported for
     each chain kernel instantiation (CHAIN_KERNEL), under a readable label
-    such as ``chain_general_kernel<true, 3>``, and for each tree kernel
-    (TREE_KERNEL): {label: {"registers": r, "smem_bytes": s}}."""
+    such as ``chain_general_kernel<true, 3>``, for each tree kernel
+    (TREE_KERNEL) and for each instantiation of the SSD scan (SSD_KERNEL,
+    ``mamba2_ssd_kernel<float>`` and ``<bf16>``): {label: {"registers":
+    r, "smem_bytes": s}}."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = CHAIN_KERNEL.search(m.group(1))
             t = TREE_KERNEL.search(m.group(1))
+            ssd = SSD_KERNEL.search(m.group(1))
             fn = t.group(0) if t else None if k is None else (
                 f"chain_{k.group(1)}_kernel<{('false', 'true')[int(k.group(2))]}"
                 + (f", {k.group(3)}>" if k.group(3) else ">"))
+            if ssd:
+                fn = f"mamba2_ssd_kernel<{SSD_DTYPE[ssd.group(1)]}>"
         elif fn and "Used" in line:
             regs = re.search(r"Used (\d+) registers", line)
             smem = re.search(r"(\d+) bytes smem", line)
@@ -2403,9 +2414,9 @@ def phase16(dev, name: str, smi: str, bench) -> dict:
             order = ("eager", "captured") if rep % 2 == 0 else (
                 "captured", "eager")
             for k in order:
-                ms = event_ms(lambda f=runs[k]: f(bench.SWEEP_ITERS), 1,
+                ms = event_ms(lambda f=runs[k]: f(SWEEP_PATH_STEPS), 1,
                               warmup=False)
-                times[k].append(ms * 1e3 / bench.SWEEP_ITERS)
+                times[k].append(ms * 1e3 / SWEEP_PATH_STEPS)
         profiles = {}
         for k, f in runs.items():
             prof = bench.profile_path(lambda f=f: f(P16_TRACE))
@@ -3205,26 +3216,32 @@ def main() -> int:
         del post, eps
 
     with Phase("4 sweep main path"):
-        sweep_us, sweep_trace = bench.time_sweep(
-            target, cfg, before_timed=reset_launches)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        th0 = bench.theta0(dev)
+        chain = compile_chain(pmp.make_superstep(target, cfg), gen, th0,
+                              bench._theta)
+        chain.run(gen, th0, 20)  # the captures, before the count
+        reset_launches()
+        _, sweep_trace = chain.run(gen, th0, SWEEP_PATH_STEPS)
         sweep_counts = dict(launches)
-        print(f"sweep: {sweep_us:.3f} us/iter over {bench.SWEEP_ITERS} "
-              f"supersteps (CUDA events); launches {sweep_counts}")
-        require(sweep_counts["linreg_rss"] == bench.SWEEP_ITERS,
+        print(f"sweep: launches {sweep_counts}")
+        require(sweep_counts["linreg_rss"] == SWEEP_PATH_STEPS,
                 "one linreg_rss launch per superstep")
         require({k: sweep_counts[k] for k in tree_launches(0)}
-                == tree_launches(bench.SWEEP_ITERS),
+                == tree_launches(SWEEP_PATH_STEPS),
                 "one launch of each tree kernel per superstep")
         posterior_check("sweep", sweep_trace, SWEEP_BURN, target, bench)
 
     with Phase("5 fused main path"):
-        fused_us, fused_trace = bench.time_fused(
-            target, cfg, before_timed=reset_launches)
+        run = fc.make_fused_chain(target, cfg, chunk=FUSED_CHUNK)
+        gen.manual_seed(2)
+        run(gen, th0, FUSED_CHUNK)
+        reset_launches()
+        fused_trace = run(gen, th0, FUSED_STEPS)
         fused_counts = dict(launches)
-        print(f"fused: {fused_us:.4f} us/iter over {bench.FUSED_ITERS} "
-              f"supersteps (CUDA events); launches {fused_counts}")
-        require(fused_counts["fused_chain"]
-                == bench.FUSED_ITERS // bench.FUSED_CHUNK,
+        print(f"fused: launches {fused_counts}")
+        require(fused_counts["fused_chain"] == FUSED_STEPS // FUSED_CHUNK,
                 "one fused_chain launch per chunk")
         posterior_check("fused", fused_trace, FUSED_BURN, target, bench)
 
@@ -3277,7 +3294,7 @@ def main() -> int:
         })
 
         # fused_chain: one launch of the fused path's chunk
-        chunk = bench.FUSED_CHUNK
+        chunk = FUSED_CHUNK
         seed = torch.tensor([12345], dtype=torch.int32, device=dev)
         th0 = bench.theta0(dev)
         ms = event_ms(lambda: fc.chain_chunk(
@@ -3583,7 +3600,7 @@ def main() -> int:
                                 ("general N=7 depth=3", 7, 3)):
             pcfg = pmp.PMPConfig(N=N_k, depth=d_k, step_size=0.02,
                                  selection="all_first")
-            run = fc.make_fused_chain(target, pcfg, chunk=bench.FUSED_CHUNK)
+            run = fc.make_fused_chain(target, pcfg, chunk=FUSED_CHUNK)
             gen = torch.Generator(device=dev)
             gen.manual_seed(7)
             trace = run(gen, bench.theta0(dev), POSTERIOR_STEPS)
@@ -3974,8 +3991,6 @@ def main() -> int:
 
     print(json.dumps({
         "bench": "pmp_p1024_n100k", "device": name, "power": smi,
-        "sweep_us_per_iter": sweep_us, "fused_us_per_iter": fused_us,
-        "a100_reference_us_per_iter": bench.A100_REFERENCE_US,
         "total_wall_s": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": kernels}))

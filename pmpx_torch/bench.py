@@ -1,26 +1,18 @@
-"""The benchmark cell of ``bench.py`` (repo root) on the port: a PMP chain
-over the Bayesian linreg posterior, n = 100,000 points, temper 1e-3, a
-binary prefetch tree with N = 1, depth = 10 (P = 1024 speculative states),
-step 0.02, transition sigma 1.0, ``selection="all_first"``, theta0 =
-(0, 0, 1).  Two paths run the same sampler:
+"""The linreg cell of ``bench.py`` (repo root) on the port, and card-side
+helpers that time and count a call, for ``chip_smoke.py``,
+``scripts/rss_cluster_fit.py`` and the tests.
 
-* ``sweep`` — :func:`pmpx_torch.run_chain` over the PMP superstep, with
-  the O(P*n) likelihood in the ``linreg_rss`` CUDA kernel;
-* ``fused`` — the whole chain in the ``fused_chain`` CUDA kernel, 1000
-  supersteps per launch, uniforms from its in-kernel Philox.
-
-Both are timed with CUDA events after a warm-up.  Run
-``python -m pmpx_torch.bench`` on a machine with a CUDA card; it prints
-one JSON line (``--profile`` first prints a torch.profiler breakdown of
-each path, and ``--rss`` one line per ``RSS_TIMED`` shape of one
-``linreg_rss`` call's times, :func:`rss_times`, and its launch).  The A100 figure of the reference implementation
-(42096.793 us GPU + 2041.279 us host per iteration) is printed beside the
-card's numbers as that: the reference's, on an A100.
+The cell: a PMP chain over the Bayesian linreg posterior, n = 100,000
+points, temper 1e-3, a binary prefetch tree with N = 1, depth = 10 (P =
+1024 speculative states), step 0.02, transition sigma 1.0,
+``selection="all_first"``, theta0 = (0, 0, 1).  The benchmark measures
+it: ``python3 benchmark/run.py --workload linreg-p1024-sweep`` (the PMP
+superstep as one compiled chain) and ``--workload linreg-p1024-fused``
+(the whole chain in the ``fused_chain`` kernel).
 """
 
 from __future__ import annotations
 
-import argparse
 import ctypes
 import json
 import os
@@ -32,30 +24,18 @@ import torch
 
 from pmpx_torch import _build
 from pmpx_torch._device import resolve_device
-from pmpx_torch.kernels import fused_chain as fc
-from pmpx_torch.kernels.linreg import batched_rss, kernel_info, pad_proposals
+from pmpx_torch.kernels.linreg import batched_rss, pad_proposals
 from pmpx_torch.samplers import pmp
-from pmpx_torch.samplers.base import compile_chain
 from pmpx_torch.targets.linreg import BayesLinReg, make_synthetic_linreg
 
 __all__ = [
-    "A100_REFERENCE_US", "bench_target", "bench_config", "theta0",
-    "time_sweep", "time_fused", "least_squares", "profile_path",
-    "graph_us", "graph_nodes", "rss_inputs", "rss_times", "main",
+    "bench_target", "bench_config", "theta0", "least_squares",
+    "profile_path", "graph_us", "graph_nodes", "rss_inputs", "rss_times",
 ]
 
-A100_REFERENCE_US = 42096.793 + 2041.279
 N_DATA = 100_000
 TEMPER = 1e-3
 DEPTH = 10
-SWEEP_ITERS = 2000
-FUSED_ITERS = 100_000
-FUSED_CHUNK = 1000
-# --rss: (P, n) of one linreg_rss call: the sweep cell's P = 1024, the ESS
-# protocol's sweep cells (P = 512, 8) at n = 100,000, and the time grid's
-# n = 500 cells (P = 1024, and P = 4 padded to 8)
-RSS_TIMED = ((1024, 100_000), (512, 100_000), (8, 100_000), (1024, 500),
-             (8, 500))
 RSS_CALLS = 200  # calls per graph, per eager run and per profiler trace
 RSS_HOST_CALLS = 1000  # calls in the host's count
 
@@ -93,43 +73,8 @@ def _elapsed_ms(fn):
 
 
 def _theta(theta, out):
+    """A chain's ``collect`` that records its state."""
     return theta
-
-
-def time_sweep(target, cfg, *, before_timed=None):
-    """The sweep path: ``run_chain`` over ``make_superstep`` as one
-    compiled chain, 20 supersteps of warm-up (the capture), then
-    ``SWEEP_ITERS`` timed (replays only).  Returns ``(us_per_iter, trace
-    (SWEEP_ITERS, 3))``.  ``before_timed()`` runs just before the timed
-    run."""
-    superstep = pmp.make_superstep(target, cfg)
-    gen = torch.Generator(device=target.device)
-    gen.manual_seed(1)
-    th0 = theta0(target.device)
-    chain = compile_chain(superstep, gen, th0, _theta)
-    chain.run(gen, th0, 20)
-    torch.cuda.synchronize()
-    if before_timed is not None:
-        before_timed()
-    (_, trace), ms = _elapsed_ms(lambda: chain.run(gen, th0, SWEEP_ITERS))
-    return ms * 1e3 / SWEEP_ITERS, trace
-
-
-def time_fused(target, cfg, *, before_timed=None):
-    """The fused path: ``make_fused_chain(rng="kernel")`` in launches of
-    ``FUSED_CHUNK`` supersteps, one launch of warm-up, then
-    ``FUSED_ITERS`` timed.  Returns ``(us_per_iter, trace (FUSED_ITERS,
-    3))``."""
-    run = fc.make_fused_chain(target, cfg, chunk=FUSED_CHUNK, rng="kernel")
-    gen = torch.Generator(device=target.device)
-    gen.manual_seed(2)
-    th0 = theta0(target.device)
-    run(gen, th0, FUSED_CHUNK)
-    torch.cuda.synchronize()
-    if before_timed is not None:
-        before_timed()
-    trace, ms = _elapsed_ms(lambda: run(gen, th0, FUSED_ITERS))
-    return ms * 1e3 / FUSED_ITERS, trace
 
 
 def least_squares(target):
@@ -304,84 +249,3 @@ def rss_inputs(P, n, device):
         -1.0 + 0.3 * torch.randn(P, generator=gen, device=device),
         2.0 + 0.3 * torch.randn(P, generator=gen, device=device))
     return t, b0, b1
-
-
-def _rss_lines(device) -> None:
-    """``--rss``: one JSON line per RSS_TIMED shape, over every padded slot
-    and over the real points only, with the launch's geometry."""
-    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
-                   "--format=csv,noheader").read().strip().splitlines()
-    card = {"device": torch.cuda.get_device_name(0),
-            "power": smi[0] if smi else None}
-    for P, n in RSS_TIMED:
-        t, b0, b1 = rss_inputs(P, n, device)
-        for points in (t.x2d.numel(), n):
-            info = kernel_info(b0.shape[0], points)
-            print(json.dumps({
-                "rss": f"P{P}_n{n}", "P": P, "padded_P": int(b0.shape[0]),
-                "n": n, "slots": t.x2d.numel(), "points_read": points,
-                "clusters": info["clusters"],
-                "cluster_size": info["cluster_size"],
-                **rss_times(b0, b1, t.x2d, t.y2d, n_valid=points), **card}),
-                flush=True)
-
-
-def main(argv=None):
-    parser = argparse.ArgumentParser(prog="python -m pmpx_torch.bench")
-    parser.add_argument(
-        "--profile", action="store_true",
-        help="also trace 20 sweep supersteps and one fused launch of "
-             "the cell, of flat MP (P = 1024) and of the N = 7 x depth 3 "
-             "tree with torch.profiler and print where the time goes")
-    parser.add_argument(
-        "--rss", action="store_true",
-        help="also print the times of one linreg_rss call (rss_times) at "
-             "each RSS_TIMED shape")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("pmpx_torch.bench: no CUDA device")
-    t0 = time.perf_counter()
-    if args.rss:
-        _rss_lines(torch.device("cuda"))
-    target = bench_target()
-    cfg = bench_config()
-    sweep_us, _ = time_sweep(target, cfg)
-    fused_us, _ = time_fused(target, cfg)
-    if args.profile:
-        gen = torch.Generator(device=target.device)
-        gen.manual_seed(4)
-        th0 = theta0(target.device)
-        # the cell's binary tree, and the time grid's flat MP (P = 1024)
-        # and conv_pmp tree (N = 7, depth 3) on the same data
-        cfgs = {"": cfg, "_mp": pmp.PMPConfig(
-            N=1023, depth=1, step_size=0.02, selection="all_first"),
-            "_general": pmp.PMPConfig(
-                N=7, depth=3, step_size=0.02, selection="all_first")}
-        paths = []
-        for tag, c in cfgs.items():
-            chain = compile_chain(pmp.make_superstep(target, c), gen, th0,
-                                  _theta)
-            run = fc.make_fused_chain(target, c, chunk=FUSED_CHUNK)
-            paths += [
-                (f"sweep{tag}", lambda ch=chain: ch.run(gen, th0, 20), 20),
-                (f"fused{tag}", lambda r=run: r(gen, th0, FUSED_CHUNK),
-                 FUSED_CHUNK),
-            ]
-        for name, fn, iters in paths:
-            fn()  # warm-up outside the trace
-            prof = profile_path(fn)
-            prof["supersteps"] = iters
-            print(json.dumps({"profile": name, **prof}))
-    print(json.dumps({
-        "metric": "pmp_p1024_n100k_fused_us_per_iter",
-        "value": fused_us,
-        "unit": "us",
-        "sweep_us_per_iter": sweep_us,
-        "device": torch.cuda.get_device_name(0),
-        "a100_reference_us_per_iter": A100_REFERENCE_US,
-        "wall_s": time.perf_counter() - t0,
-    }))
-
-
-if __name__ == "__main__":
-    main()

@@ -9,7 +9,9 @@ Three modes, chosen from the config as ``pmpx`` chooses them
 of C chains (one block each): the mode's CUDA kernel in
 ``csrc/fused_chain.cu`` for CUDA tensors, its plain version
 :func:`fused_chain_ref` for CPU tensors.  :func:`make_fused_chain` builds
-the chain runner over chunks, the counterpart of ``pmpx``'s.
+the chain runner over chunks, the counterpart of ``pmpx``'s; it and the
+farm (:func:`pmpx_torch.parallel.chains.make_chain_farm_fused`, C chains a
+launch) share one host loop over the chunks, :func:`_run_chunks`.
 
 ``emit="all"`` is the reference's ESS protocol (``selection="all_first"``):
 each superstep draws P iid slots from the weights, slot 0's draw is the
@@ -688,6 +690,62 @@ def chain_consts(target, cfg) -> dict:
     )
 
 
+def _run_chunks(target, generators, theta, num_steps, consts, *, chunk,
+                rng, emit="root", uin=None, uemit=None, spans="fused"):
+    """The chunk loop of :func:`make_fused_chain` (one generator, theta
+    (3,)) and of the farm (C generators, theta (C, 3)): a launch of
+    :func:`chain_chunk` a chunk, each from the state the last one left.
+
+    Chain c's uniforms come from ``generators[c]`` alone, so chain c of a
+    farm is a one-chain run from its generator: with ``rng="kernel"`` on
+    the card, its Philox seeds as one ``(n_chunks, 1)`` int32 ``randint``
+    before the first launch; otherwise each chunk's ``1 - rand((chunk*17,
+    L))`` (then ``(chunk, L)`` for ``emit="all"``), unless ``uin`` and
+    ``uemit`` give them.  ``spans`` prefixes the ``.seeds`` and
+    ``.kernel`` spans.  Returns the chunks' traces (root rows only for
+    ``emit="root"``) and ``emit_b0``s, and the final state.
+    """
+    if (uin is not None or uemit is not None) and rng != "input":
+        raise ValueError("uin and uemit replace the uniforms of rng='input'")
+    xg, yg = target.x2d, target.y2d
+    dev = xg.device
+    theta = theta.to(device=dev, dtype=torch.float32).contiguous()
+    farm = theta.dim() == 2
+    many = {"chains": len(generators)} if len(generators) > 1 else {}
+    L = lane_extent(consts["P"])
+    n_chunks = -(-num_steps // chunk)
+    seeds = None
+    if rng == "kernel" and dev.type == "cuda":
+        with span(f"{spans}.seeds", dev):
+            seeds = [torch.randint(0, 2**31 - 1, (n_chunks, 1), generator=g,
+                                   device=dev, dtype=torch.int32)
+                     for g in generators]
+            seeds = torch.cat(seeds, dim=1) if farm else seeds[0]
+    traces, b0s = [], []
+    for c in range(n_chunks):
+        if seeds is not None:
+            kw = dict(seed=seeds[c])
+        elif uin is not None:
+            kw = dict(uin=uin[c])
+            if emit == "all":
+                kw["uemit"] = uemit[c]
+        else:
+            with span(f"{spans}.seeds", dev):
+                u = [1.0 - torch.rand((chunk * U_ROWS, L), generator=g,
+                                      device=dev) for g in generators]
+                kw = dict(uin=torch.stack(u) if farm else u[0])
+                if emit == "all":
+                    kw["uemit"] = 1.0 - torch.rand(
+                        (chunk, L), generator=generators[0], device=dev)
+        with span(f"{spans}.kernel", dev, steps=chunk, **many):
+            out = chain_chunk(xg, yg, theta, steps=chunk, emit=emit, **kw,
+                              **consts)
+        theta = out[1]
+        traces.append(out[0] if emit == "all" else out[0][..., :3, :])
+        b0s += out[2:]
+    return traces, b0s, theta
+
+
 def make_fused_chain(target, cfg, *, chunk: int = 512, rng: str = "kernel",
                      emit: str = "root"):
     """Build ``run(generator, theta0, num_steps, *, uin=None, uemit=None)``.
@@ -713,59 +771,24 @@ def make_fused_chain(target, cfg, *, chunk: int = 512, rng: str = "kernel",
     if rng not in ("kernel", "input"):
         raise ValueError(f"unknown rng {rng!r}")
     consts = chain_consts(target, cfg)
-    L = lane_extent(consts["P"])
-    xg, yg = target.x2d, target.y2d
-    dev = xg.device
-    emit_all = emit == "all"
+    dev = target.x2d.device
 
     def run(generator: torch.Generator, theta0: torch.Tensor,
             num_steps: int, *, uin: Optional[torch.Tensor] = None,
             uemit: Optional[torch.Tensor] = None):
-        n_chunks = -(-num_steps // chunk)
-        if (uin is not None or uemit is not None) and rng != "input":
-            raise ValueError("uin and uemit replace the uniforms of "
-                             "rng='input'")
-        kernel_rng = rng == "kernel" and dev.type == "cuda"
         with span("fused.run", dev, steps=num_steps):
-            if kernel_rng:
-                with span("fused.seeds", dev):
-                    seeds = torch.randint(
-                        0, 2**31 - 1, (n_chunks, 1), generator=generator,
-                        device=dev, dtype=torch.int32,
-                    )
-            theta = theta0.to(device=dev, dtype=torch.float32).contiguous()
-            parts = []
-            for c in range(n_chunks):
-                if kernel_rng:
-                    kw = dict(seed=seeds[c])
-                elif uin is not None:
-                    kw = dict(uin=uin[c])
-                    if emit_all:
-                        kw["uemit"] = uemit[c]
-                else:
-                    with span("fused.seeds", dev):
-                        kw = dict(uin=1.0 - torch.rand(
-                            (chunk * U_ROWS, L), generator=generator,
-                            device=dev))
-                        if emit_all:
-                            kw["uemit"] = 1.0 - torch.rand(
-                                (chunk, L), generator=generator, device=dev)
-                with span("fused.kernel", dev, steps=chunk):
-                    out = chain_chunk(xg, yg, theta, steps=chunk, emit=emit,
-                                      **kw, **consts)
-                theta = out[1]
-                parts.append(out[0] if not emit_all else (out[0], out[2]))
+            traces, b0s, _ = _run_chunks(
+                target, [generator], theta0, num_steps, consts, chunk=chunk,
+                rng=rng, emit=emit, uin=uin, uemit=uemit)
             with span("fused.gather", dev):
-                if not emit_all:
-                    return torch.cat([tr[:3] for tr in parts],
-                                     dim=1).T[:num_steps]
-                meta = torch.cat([m for m, _ in parts], dim=1)[:, :num_steps]
+                meta = torch.cat(traces, dim=1)[:, :num_steps]
+                if emit == "root":
+                    return meta.T
                 return {
                     "root": meta[:3].T,
                     "jumps": meta[3],
                     "last": meta[4:7].T,
-                    "emit_b0": torch.cat([b for _, b in parts], dim=0)[
-                        :num_steps].T,
+                    "emit_b0": torch.cat(b0s, dim=0)[:num_steps].T,
                 }
 
     return run

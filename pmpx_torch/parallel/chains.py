@@ -26,13 +26,14 @@ grouping of the chains' noise); the law is the same.
 The fused farm: ``pmpx`` runs C chains through ``lax.map`` over its fused
 kernel, one after another on each device of a ``chains`` mesh axis.  Here
 one launch of the fused chain kernel runs a rank's chains, one thread
-block each (:func:`pmpx_torch.kernels.fused_chain.chain_chunk` with theta
-(C, 3)), so that the chains fill the card's SMs instead of one; with a
+block each, so that the chains fill the card's SMs instead of one; with a
 mesh, each chains-rank launches its block and the roots are gathered back
-in chain order.  Chain c is bit-identical to a single chain of
-:func:`~pmpx_torch.kernels.fused_chain.make_fused_chain` run from chain
-c's generator and theta0, as ``pmpx`` asserts for its farm, whatever the
-mesh.
+in chain order.  The farm and
+:func:`~pmpx_torch.kernels.fused_chain.make_fused_chain` run the same
+chunk loop (``fused_chain._run_chunks``), which draws chain c's seeds or
+uniforms from chain c's generator alone, so chain c is bit-identical to a
+single chain run from that generator and theta0, as ``pmpx`` asserts for
+its farm, whatever the mesh.
 """
 
 from __future__ import annotations
@@ -191,9 +192,7 @@ def make_chain_farm_fused(target, cfg, num_steps: int, mesh=None, *,
     if rng not in ("kernel", "input"):
         raise ValueError(f"unknown rng {rng!r}")
     consts = fc.chain_consts(target, cfg)
-    L = fc.lane_extent(consts["P"])
-    xg, yg = target.x2d, target.y2d
-    dev = xg.device
+    dev = target.x2d.device
 
     def run(generators: Sequence[torch.Generator], theta0: torch.Tensor, *,
             uin: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -202,41 +201,17 @@ def make_chain_farm_fused(target, cfg, num_steps: int, mesh=None, *,
         if theta.shape != (C, 3):
             raise ValueError(f"{C} generators need theta0 ({C}, 3), got "
                              f"{tuple(theta.shape)}")
-        if uin is not None and rng != "input":
-            raise ValueError("uin replaces the uniforms of rng='input'")
         if mesh is not None:
             group, _, blk = _chains_block(mesh, C)
             generators, theta = generators[blk], theta[blk]
             uin = None if uin is None else uin[:, blk]
-        n_chunks = -(-num_steps // chunk)
-        kernel_rng = rng == "kernel" and dev.type == "cuda"
         many = {"chains": len(generators)} if len(generators) > 1 else {}
         with span("farm.run", dev, steps=num_steps, **many):
-            if kernel_rng:
-                with span("farm.seeds", dev):
-                    seeds = torch.cat([
-                        torch.randint(0, 2**31 - 1, (n_chunks, 1),
-                                      generator=g, device=dev,
-                                      dtype=torch.int32)
-                        for g in generators], dim=1)
-            parts = []
-            for c in range(n_chunks):
-                if kernel_rng:
-                    kw = dict(seed=seeds[c])
-                elif uin is not None:
-                    kw = dict(uin=uin[c])
-                else:
-                    with span("farm.seeds", dev):
-                        kw = dict(uin=torch.stack([
-                            1.0 - torch.rand((chunk * fc.U_ROWS, L),
-                                             generator=g, device=dev)
-                            for g in generators]))
-                with span("farm.kernel", dev, steps=chunk, **many):
-                    tr, theta = fc.chain_chunk(xg, yg, theta, steps=chunk,
-                                               **kw, **consts)
-                parts.append(tr[:, :3])
+            traces, _, _ = fc._run_chunks(
+                target, generators, theta, num_steps, consts, chunk=chunk,
+                rng=rng, uin=uin, spans="farm")
             with span("farm.gather", dev):
-                roots = torch.cat(parts, dim=2)[:, :, :num_steps]
+                roots = torch.cat(traces, dim=2)[:, :, :num_steps]
                 roots = roots.transpose(1, 2)
                 return roots if mesh is None else all_gather_cat(roots,
                                                                  group)

@@ -8,8 +8,10 @@ CUDA events on a card and ``time.perf_counter`` on the CPU.
 
 Spans and counters.  The chain runners open a :func:`span` at each of
 their layer's boundaries (``fused.*`` in
-:func:`pmpx_torch.kernels.fused_chain.make_fused_chain`, ``farm.*`` in
-:func:`pmpx_torch.parallel.chains.make_chain_farm_fused`, ``chain.*`` in
+:func:`pmpx_torch.kernels.fused_chain.make_fused_chain` and ``farm.*`` in
+:func:`pmpx_torch.parallel.chains.make_chain_farm_fused`: each runner's
+``.run`` and ``.gather``, and the ``.seeds`` and ``.kernel`` spans of the
+chunk loop both share, ``fused_chain._run_chunks``; ``chain.*`` in
 :class:`pmpx_torch.samplers.base.CompiledChain` and
 :func:`~pmpx_torch.samplers.base.run_chain_eager`), and an NN posterior's
 batched density is ``nn.density`` wherever it runs outside a capture

@@ -479,7 +479,8 @@ def test_stamps_need_a_cuda_tensor():
 def test_ptxas_usage_names_every_chain_kernel():
     """chip_smoke.py's phase 1 reads each chain kernel's registers and
     shared memory from ptxas's report, with the general kernel's depth
-    where it is a template argument, and skips the other kernels."""
+    where it is a template argument, and the SSD scan's per dtype, and
+    skips the other kernels."""
     import importlib
     import sys
 
@@ -498,10 +499,18 @@ def test_ptxas_usage_names_every_chain_kernel():
         "ptxas info    : Used 32 registers, 33820 bytes smem",
         fn + "17lstm_fused_kernelIfEEvv' for 'sm_90a'",
         "ptxas info    : Used 248 registers, used 1 barriers",
+        fn + "17mamba2_ssd_kernelIfEEvPKT_PKfS5_S3_S3_S5_PS1_iiNS_7StridesE'"
+        " for 'sm_90a'",
+        "ptxas info    : Used 128 registers, used 1 barriers, 24960 bytes smem",
+        fn + "17mamba2_ssd_kernelI13__nv_bfloat16EEvPKT_PKfS6_S4_S4_S6_PS2_ii"
+        "NS_7StridesE' for 'sm_90a'",
+        "ptxas info    : Used 127 registers, used 1 barriers, 24960 bytes smem",
     ])
     assert cs.ptxas_usage(log) == {
         "chain_binary_kernel<false>": {"registers": 32, "smem_bytes": 25492},
         "chain_general_kernel<false>": {"registers": 32, "smem_bytes": 33820},
         "chain_general_kernel<true, 3>": {"registers": 51,
                                           "smem_bytes": 45800},
+        "mamba2_ssd_kernel<float>": {"registers": 128, "smem_bytes": 24960},
+        "mamba2_ssd_kernel<bf16>": {"registers": 127, "smem_bytes": 24960},
     }

@@ -1360,33 +1360,6 @@ def test_compiled_chain_launches_match_the_graph(cuda):
 
 
 @pytest.mark.gpu
-def test_time_sweep_captures_outside_its_window(cuda, monkeypatch):
-    """bench.time_sweep compiles its chain and captures it in the warm-up:
-    nothing is captured between before_timed() and the end of the timed
-    run, which counts one linreg_rss launch a superstep."""
-    from pmpx_torch import bench
-    from pmpx_torch.kernels import reset_launches
-    from pmpx_torch.samplers import base
-
-    captures, marks = [], []
-    capture = base.CompiledChain._capture
-    monkeypatch.setattr(base.CompiledChain, "_capture", lambda self, k: (
-        captures.append(k), capture(self, k))[1])
-
-    def before_timed():
-        reset_launches()
-        marks.append(len(captures))
-
-    with torch.no_grad():
-        us, trace = bench.time_sweep(_linreg_sweep(cuda), bench.bench_config(),
-                                     before_timed=before_timed)
-    # the one-step graph and the 16 the warm-up's 20 supersteps allow
-    assert captures == [1, 16] and marks == [2]
-    assert launches["linreg_rss"] == bench.SWEEP_ITERS
-    assert trace.shape == (bench.SWEEP_ITERS, 3) and us > 0
-
-
-@pytest.mark.gpu
 def test_a_state_that_mixes_devices_raises_on_the_card(cuda):
     """A state with one leaf on the card and one off it raises in
     eager_reason and run_chain; it never runs as the loop."""
